@@ -1,6 +1,6 @@
 """Benchmark harness for the four BASELINE.json eval configs.
 
-Run on the target hardware (`python benchmarks/run_all.py`); emits one
+Run on a GPU (`python benchmarks/run_all.py`); emits one
 JSON document with per-config wall-clocks and parity checks.  The
 driver-facing single-line benchmark stays in `bench.py`; this harness
 is the full evaluation matrix:
@@ -118,7 +118,7 @@ def config2_randomized_f64():
     sv_m = np.asarray(pca_mixed.singular_values())
     sv_f = np.asarray(pca_full.singular_values())
     return {
-        "fit_ms": round(mixed_ms, 1),  # default (auto) path on TPU
+        "fit_ms": round(mixed_ms, 1),  # default (auto) path off the CPU
         "fit_full_f64_ms": round(full_ms, 1),
         "speedup_mixed_vs_full": round(full_ms / mixed_ms, 2),
         "sigma_head": sv_m[:3].tolist(),
@@ -169,7 +169,7 @@ def config3_fastica():
            "ms_per_iter": round(dt / iters * 1e3, 3)}
 
     # f64 iteration rate: reference-faithful full precision (XLA's
-    # emulated f64 matmuls) vs the mixed f32-iterate/f64-polish path
+    # f64 matmuls) vs the mixed f32-iterate/f64-polish path
     # (iteration_precision="auto" on accelerators).  On non-convergent
     # Gaussian data every iteration runs in the f32 stage, so this
     # isolates the per-step cost.
@@ -328,6 +328,12 @@ def config6_streamed_ica():
 
 
 def main():
+    import petal_decomposition_tpu  # noqa: F401 — first: enables x64
+    import jax
+
+    platform = jax.devices()[0].platform
+    if platform != "gpu":
+        raise SystemExit(f"needs a GPU; JAX found {platform}")
     results = {}
     for name, fn in [
         ("config1_exact_pca_1000x64_f64", config1_exact_pca),

@@ -1,14 +1,12 @@
 """Adversarial shape/dtype sweep across all three models.
 
 Robustness harness, not a benchmark: fits every model on shapes that
-historically broke kernels or dispatch (rank-deficient data, single
-samples/features, odd dims, shapes straddling the VMEM kernels'
-supports() boundaries, fewer rows than mesh devices) and asserts
-finite outputs.  Run on the REAL TPU (`python benchmarks/shape_sweep.py`)
-— several round-2 bugs (a CholeskyQR2 NaN on rank-deficient panels, a
-df64-kernel scoped-VMEM compile OOM, an emulated-f64 lift underflow, a
-spurious ICA decorrelation LinalgError at k > rank) only reproduce
-there.  Pass ``--mesh`` to sweep the sharded paths instead (any
+historically broke factorizations or dispatch (rank-deficient data,
+single samples/features, odd dims, wide inputs, fewer rows than mesh
+devices) and asserts finite outputs.  Run on a GPU
+(`python benchmarks/shape_sweep.py`): the accelerator routes (QDWH-SVD,
+refined eigh, CholeskyQR2) are the ones the CPU tests do not take by
+default.  Pass ``--mesh`` to sweep the sharded paths instead (any
 backend; on CPU set XLA_FLAGS=--xla_force_host_platform_device_count=8).
 """
 
@@ -43,8 +41,8 @@ CONFIGS = [
     # (n, d, k, rank)
     (50, 7, 3, None),        # tiny
     (100_000, 8, 4, None),   # very tall narrow
-    (3000, 700, 16, None),   # beyond df64 kernel width (QDWH+refine)
-    (200, 2000, 8, None),    # wide (transposed SVD; VMEM supports() edge)
+    (3000, 700, 16, None),   # f64 eigh past 384 (QDWH+refine)
+    (200, 2000, 8, None),    # wide (transposed SVD)
     (5000, 64, 8, 2),        # exactly rank-deficient
     (1, 5, 1, None),         # single sample (centered panel == 0)
     (13, 7, 3, None),        # odd dims (pad/mask paths)
@@ -67,6 +65,12 @@ def _data(rng, n, d, dtype, rank):
 def main() -> int:
     use_mesh = "--mesh" in sys.argv
     mesh = None
+    if not use_mesh:
+        import jax
+
+        platform = jax.devices()[0].platform
+        if platform != "gpu":
+            raise SystemExit(f"needs a GPU; JAX found {platform}")
     if use_mesh:
         from petal_decomposition_tpu.parallel import make_mesh
 

@@ -1,15 +1,17 @@
-"""Example: large-scale randomized PCA, the TPU way.
+"""Example: large-scale randomized PCA on an accelerator.
 
 Everything here is the DEFAULT dispatch — ``RandomizedPca(k).fit(x)``
-picks the Gram-accelerated range finder, bf16 subspace arithmetic with
-exact Rayleigh–Ritz recovery, the fused sketch+moments kernel, and
-matmul-only CholeskyQR2 on accelerators, while CPU runs keep the
-reference-faithful direct Halko pipeline (pca.rs:665-718).
+picks, off the CPU, the Gram-accelerated range finder with fused
+centering, exact Rayleigh–Ritz recovery against the data, and
+matmul-only CholeskyQR2, while CPU runs keep the reference-faithful
+direct Halko pipeline (pca.rs:665-718).
 
-Run:  python examples/big_pca_tpu.py            (TPU or any accelerator)
-      JAX_PLATFORMS=cpu python examples/big_pca_tpu.py   (reduced size)
+Run:  python examples/big_pca.py                        (a GPU)
+      JAX_PLATFORMS=cpu python examples/big_pca.py      (reduced size)
 """
 
+import os
+import tempfile
 import time
 
 import numpy as np
@@ -54,7 +56,7 @@ print(f"mesh({mesh.size} device(s)): sigma rel diff vs single device:",
       float(np.max(np.abs(s1 - s2) / s1)))
 
 # --- out of core: the same fit from a stream of row blocks -----------
-# fit_batched never holds more than one block on device (DESIGN.md §8);
+# fit_batched never holds more than a few blocks on device;
 # an np.memmap input would stream from disk the same way.
 streamed = RandomizedPca(k, seed=1_234_567_891_011_121_314)
 streamed.fit_batched(
@@ -66,8 +68,10 @@ print("streamed (out-of-core) sigma rel diff vs in-core:",
       "| blocks:", streamed.last_fit_stats_.extra["streamed_blocks"])
 
 # --- persistence: a restored model transforms identically ------------
-save(pca, "/tmp/big_pca.npz")
-restored = load("/tmp/big_pca.npz")
+with tempfile.TemporaryDirectory() as tmp:
+    path = os.path.join(tmp, "big_pca.npz")
+    save(pca, path)
+    restored = load(path)
 y0 = np.asarray(pca.transform(x[:128]))
 y1 = np.asarray(restored.transform(x[:128]))
 print("save/load transform max |delta|:", float(np.max(np.abs(y0 - y1))))

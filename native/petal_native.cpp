@@ -3,11 +3,11 @@
 // The reference's L1 is a native LAPACK FFI layer behind a trait
 // (src/linalg/lapack.rs: gesvd/gesdd/heev/gelqf+unglq via macro-generated
 // Fortran bindings).  This library is its standalone equivalent for the
-// TPU rebuild: the same four factorization capabilities implemented
+// JAX rebuild: the same four factorization capabilities implemented
 // directly (no LAPACK dependency), exposed over a C ABI for ctypes.
 // It serves as
 //   * an alternate `linalg_backend="native"` for host execution,
-//   * a cross-validation oracle for the Pallas/JAX Jacobi kernels,
+//   * a cross-validation oracle for the JAX Jacobi solvers,
 //   * a dispatch-overhead-free path for tiny problems.
 //
 // Algorithms: cyclic one-sided Jacobi SVD (full working precision, the

@@ -1,10 +1,12 @@
-"""petal-decomposition-tpu: TPU-native matrix decomposition in JAX.
+"""petal-decomposition-tpu: matrix decomposition in JAX.
 
 A ground-up rebuild of the ``petal-decomposition`` Rust crate
-(exact-SVD PCA, Halko randomized-SVD PCA, parallel FastICA) designed for
-TPU: MXU-dense Jacobi factorizations replace LAPACK, XLA collectives
-replace nothing (the reference is single-threaded) but enable row-sharded
-fits over device meshes, and every fit is a pure jittable function.
+(exact-SVD PCA, Halko randomized-SVD PCA, parallel FastICA) for JAX on
+CPUs and NVIDIA GPUs: in-house QDWH and Jacobi factorizations stand in
+for LAPACK where XLA's built-ins miss the reference's accuracy, XLA
+collectives replace nothing (the reference is single-threaded) but
+enable row-sharded fits over device meshes, and every fit is a pure
+jittable function.
 
 Public API mirrors the reference's (ref: src/lib.rs:17-18):
 

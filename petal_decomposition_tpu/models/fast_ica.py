@@ -1,6 +1,6 @@
 """Parallel (symmetric) FastICA.
 
-TPU-native rebuild of the reference's ``FastIca``/``FastIcaBuilder``
+JAX rebuild of the reference's ``FastIca``/``FastIcaBuilder``
 (ref: ica.rs:41-317) and its math kernels ``ica_par``,
 ``symmetric_decorrelation`` and ``logcosh`` (ref: ica.rs:319-398).
 
@@ -20,7 +20,7 @@ Fidelity notes:
 * Contrast functions: ``logcosh`` (the reference's only contrast,
   ica.rs:383-398) plus ``exp`` and ``cube`` as extensions.
 
-The iteration is a single jitted ``lax.while_loop``: two MXU matmuls
+The iteration is a single jitted ``lax.while_loop``: two matmuls
 (``W·X`` k×k×n and ``G·Xᵀ`` k×n×k) plus the k×k symmetric decorrelation
 (eigh, or the matmul-only Newton–Schulz that ``decorrelation="auto"``
 picks on accelerators — see :func:`resolve_decorrelation`) per
@@ -85,8 +85,8 @@ def symmetric_decorrelation_ns(w, iters: int = 24):
     """Matmul-only symmetric decorrelation via coupled Newton–Schulz.
 
     Computes the same unique ``(W·Wᵀ)^(−1/2)·W`` as the eigh route but
-    with ~3 k×k MXU matmuls per NS step and no eigensolver — the
-    TPU-friendly choice inside the ICA loop (``decorrelation="ns"``).
+    with ~3 k×k matmuls per NS step and no eigensolver — the
+    launch-friendly choice inside the ICA loop (``decorrelation="ns"``).
     Trace-scaling puts the spectrum of A/c in (0, 1], for which the
     coupled iteration converges globally; iterations needed grow with
     log κ(A) (24 reaches machine precision for κ(A) ≲ 1e5; the eigh
@@ -155,10 +155,9 @@ _F32_LIM_FLOOR = 1e-5
 
 # Below this the ds64 stage's convergence functional is dominated by
 # the split-gemm + f32-contrast update error (ops/splitmm.py); the
-# stage hands off to the true-f64 certification stage.  Measured
-# one-step noise vs the f64 body at 64×100k on v5e: |ΔW|∞ 4.8e-7,
-# |Δlim| 4.6e-9 (benchmarks/DS64_STAGE.json one_step_update_noise) —
-# the floor dominates the gated quantity by >400×.
+# stage hands off to the true-f64 certification stage.  The one-step
+# noise of the ds64 body against the f64 body at 64×100k (|ΔW|∞ ~5e-7,
+# |Δlim| ~5e-9) sits >400× under this floor.
 _DS64_LIM_FLOOR = 2e-6
 
 
@@ -181,19 +180,28 @@ def _ica_par_core(x, tol, max_iter: int, w_init, fun: str,
     larger) within the shared ``max_iter`` budget:
 
     1. *f32 stage* — the k×n data matmuls (the entire per-step cost)
-       in float32 on the MXU, to ``_F32_LIM_FLOOR`` (~1e-5);
-    2. *ds64 stage* — the same matmuls as hi/lo-split f32 MXU products
-       carried in f64 (`ops/splitmm.py`; ~4× faster than emulated-f64
-       gemms at 64×100k on v5e) with an f32 contrast and f64-carried
-       reductions/decorrelation, to ``_DS64_LIM_FLOOR`` (~2e-6);
+       in float32, to ``_F32_LIM_FLOOR`` (~1e-5);
+    2. *ds64 stage* — the same matmuls as hi/lo-split f32 products
+       carried in f64 (`ops/splitmm.py`) with an f32 contrast and
+       f64-carried reductions/decorrelation, to ``_DS64_LIM_FLOOR``
+       (~2e-6);
     3. *f64 stage* — true float64 steps from the ds64 fixed point
        until ``tol``.
+
+    The first two stages also hand off once W itself is stationary at
+    their floor (sklearn's row-against-row measure
+    ``max_i ||row_i(W1)·row_i(W)| − 1|``): the reference functional
+    pairs rows of the new W with columns of the old one and reaches 0
+    only at symmetric fixed points, so on most k > 2 problems it never
+    falls below a floor, and without this exit the f32 stage would
+    spend the whole budget and return an f32-grade W for f64 data.
 
     The FastICA map is a contraction near its fixed point, so each
     stage inherits the previous stage's basin; the final W satisfies
     the same f64 convergence criterion a full-precision run does, and
-    the expensive emulated-f64 steps are confined to the last ~decade
-    of convergence.  Total iterations never exceed ``max_iter``.
+    the f64 steps are confined to the last ~decade of convergence.
+    Whether the ladder beats ``"full"`` on a GPU, which runs f64
+    natively, is not measured yet (ROADMAP A4).  Total iterations never exceed ``max_iter``.
     """
     n_pad = x.shape[1]
     n = n_pad if n_valid is None else n_valid
@@ -213,13 +221,20 @@ def _ica_par_core(x, tol, max_iter: int, w_init, fun: str,
     w0 = symmetric_decorrelation(w_init)
     p_inv = 1.0 / n  # ref: ica.rs:330
 
+    def measures(w1, w):
+        # (reference functional, row-against-row stationarity)
+        lim = jnp.max(
+            jnp.abs(jnp.abs(jnp.einsum("ij,ji->i", w1, w)) - 1.0)
+        )
+        step = jnp.max(
+            jnp.abs(jnp.abs(jnp.einsum("ij,ij->i", w1, jnp.conj(w))) - 1.0)
+        )
+        return lim, step
+
     def make_body(xs):
         def body(state):
-            w, _, it = state
-            # XLA fuses the elementwise contrast into the two k×n gemms;
-            # a hand-fused Pallas variant measured strictly slower at
-            # every supported shape, incl. k=512 n=1M where the step is
-            # MXU-bound (post-mortem: docs/DESIGN.md §7).
+            w, _, _, it = state
+            # XLA fuses the elementwise contrast into the two k×n gemms.
             gwtx, gsum = _contrast_sums(fun, mdot(w, xs))  # ica.rs:332
             gx = mdot(gwtx, xs.T)
             g_wtx = (gsum - pad * g0) * p_inv
@@ -227,44 +242,42 @@ def _ica_par_core(x, tol, max_iter: int, w_init, fun: str,
             update = gx * p_inv - g_wtx[:, None] * w
             w1 = decorr(update)
             # lim = max_i ||row_i(W1)·col_i(W)| − 1|  (ref: ica.rs:344-354)
-            lim = jnp.max(
-                jnp.abs(jnp.abs(jnp.einsum("ij,ji->i", w1, w)) - 1.0)
-            )
-            return w1, lim, it + 1
+            lim, step = measures(w1, w)
+            return w1, lim, step, it + 1
 
         return body
 
-    def run(xs, tol_s, w_start, budget):
+    def run(xs, tol_s, w_start, budget, stall_s=-1.0):
+        # ``stall_s`` < 0: the reference criterion alone.
         body = make_body(xs)
 
         def cond(state):
-            _, lim, it = state
-            return (lim >= tol_s) & (it < budget)
+            _, lim, step, it = state
+            return (lim >= tol_s) & (step >= stall_s) & (it < budget)
 
         # The carry's lim slot is always real (the body computes
         # ``max(abs(...))``); seeding it with a complex x.dtype would
         # make while_loop reject the carry on complex inputs.
         lim0 = jnp.asarray(jnp.inf, jnp.real(xs).dtype)
-        return jax.lax.while_loop(
-            cond, body, (w_start, lim0, jnp.asarray(0, jnp.int32))
+        w, lim, _, it = jax.lax.while_loop(
+            cond, body, (w_start, lim0, lim0, jnp.asarray(0, jnp.int32))
         )
+        return w, lim, it
 
     def make_body_ds(xh, xl):
         # ds64 stage body: identical update algebra, with the two k×n
-        # gemms as split-f32 MXU products (ops/splitmm.py), the
+        # gemms as split-f32 products (ops/splitmm.py), the
         # contrast at f32, and all k-sized state carried in f64.
         def body(state):
-            w, _, it = state
+            w, _, _, it = state
             wx32 = splitmm.mm_split_f32(w, xh, xl)
             gwtx, gsum = _contrast_sums(fun, wx32, sum_dtype=jnp.float64)
             gx = splitmm.mm_split_chunked_f64(gwtx, xh, xl)
             g_wtx = (gsum - pad * g0) * p_inv
             update = gx * p_inv - g_wtx[:, None] * w
             w1 = decorr(update)
-            lim = jnp.max(
-                jnp.abs(jnp.abs(jnp.einsum("ij,ji->i", w1, w)) - 1.0)
-            )
-            return w1, lim, it + 1
+            lim, step = measures(w1, w)
+            return w1, lim, step, it + 1
 
         return body
 
@@ -272,19 +285,21 @@ def _ica_par_core(x, tol, max_iter: int, w_init, fun: str,
         body = make_body_ds(xh, xl)
 
         def cond(state):
-            _, lim, it = state
-            return (lim >= tol_s) & (it < budget)
+            _, lim, step, it = state
+            return (lim >= tol_s) & (step >= tol_s) & (it < budget)
 
         lim0 = jnp.asarray(jnp.inf, jnp.float64)
-        return jax.lax.while_loop(
-            cond, body, (w_start, lim0, jnp.asarray(0, jnp.int32))
+        w, lim, _, it = jax.lax.while_loop(
+            cond, body, (w_start, lim0, lim0, jnp.asarray(0, jnp.int32))
         )
+        return w, lim, it
 
     budget = jnp.asarray(max_iter, jnp.int32)
     if precision == "f32" and x.dtype == jnp.float64:
         f32 = jnp.float32
         tol32 = jnp.maximum(tol, _F32_LIM_FLOOR).astype(f32)
-        w32, lim32, n1 = run(x.astype(f32), tol32, w0.astype(f32), budget)
+        w32, lim32, n1 = run(x.astype(f32), tol32, w0.astype(f32), budget,
+                             stall_s=tol32)
         # Re-orthonormalize at full precision before polishing: the f32
         # W carries ~eps_f32 departures from row-orthonormality.
         w_b = symmetric_decorrelation(w32.astype(x.dtype))
@@ -309,10 +324,10 @@ def _ica_par_core(x, tol, max_iter: int, w_init, fun: str,
 def resolve_iteration_precision(setting: str, dtype) -> str:
     """Eager-context resolution of ``iteration_precision="auto"``:
     ``"f32"`` (iterate in float32, polish in float64) for float64 data
-    on an accelerator backend — where XLA emulates f64 matmuls ~8×
-    slower than f32 — and ``"full"`` everywhere else (CPU LAPACK-grade
-    f64 gemms are already fast; f32/complex data always iterates at its
-    own dtype)."""
+    on an accelerator backend and ``"full"`` everywhere else (f32/complex
+    data always iterates at its own dtype).  The accelerator choice was
+    made where f64 matmuls were emulated; on a GPU with native f64 it
+    is not re-measured yet (ROADMAP A4)."""
     from ..ops.linalg import effective_platform
 
     if setting != "auto":
@@ -328,8 +343,8 @@ def resolve_decorrelation(setting: str) -> str:
     """Eager-context resolution of ``decorrelation="auto"``: the
     matmul-only Newton–Schulz route on accelerators and the eigh route
     on CPU (reference-faithful; a LAPACK-grade k×k ``?syev`` is cheap
-    there).  On TPU the in-loop k×k eigensolve is launch-latency-bound —
-    measured 1044 → ~1540 iters/s at 64×100k f32 on v5e.  The two
+    there).  Off the CPU the in-loop k×k eigensolve is
+    launch-latency-bound, while NS is a few dense matmuls.  The two
     routes compute the same unique ``(W·Wᵀ)^(−1/2)·W`` to working
     precision on the loop's inputs: each step re-decorrelates, so the
     iterate stays near-orthonormal (κ ≈ 1, inside NS's κ ≲ 1e5
@@ -354,14 +369,7 @@ def ica_par(x, tol, max_iter: int, w_init, fun: str = "logcosh",
     Returns ``(w, n_iter)``; ``n_iter == max_iter`` when the tolerance was
     never reached, matching the reference's return at ica.rs:360.
     """
-    from ..ops.jacobi import warm_kernel_probes
-
     x = jnp.asarray(x)
-    # As on every model fit path: run the one-time Pallas compile
-    # probes eagerly, or the traced pipeline bakes in the slow XLA f64
-    # eigh route (eigh_psd_jit_cert dispatches on probed() under
-    # tracing — ~93 ms vs ~3 ms per in-loop k×k decorrelation on v5e).
-    warm_kernel_probes(x.dtype)
     w, _, n_iter = _ica_par_core(
         x, jnp.asarray(tol, _common.real_dtype(x.dtype)), int(max_iter),
         jnp.asarray(w_init), fun,
@@ -571,16 +579,16 @@ class FastIca:
 
         x = _common.as_matrix(x)
         with record_fit(self, x.shape[0], x.shape[1]) as stats:
-            xt_c = self._inner_fit(x)
+            xc = self._inner_fit(x)
             stats.n_iter = self._n_iter
-        if xt_c is None:  # mesh path: same result via the projection
+        if xc is None:  # same result via the projection
             return self.transform(x)
-        return mdot(self._components, xt_c).T
+        return mdot(xc, self._components.T)
 
     def _inner_fit(self, x):
         # Complex fits on an accelerator run host-side (the
-        # reference's c32/c64 support is CPU LAPACK; complex XLA:TPU
-        # programs are impractical — see _common.complex_host_ctx).
+        # reference's c32/c64 support is CPU LAPACK — see
+        # _common.complex_host_ctx).
         # An explicit mesh wins: mesh fits are never redirected —
         # but complex on an accelerator mesh is a defined, tested
         # error (see _common.check_mesh_complex).
@@ -593,32 +601,29 @@ class FastIca:
 
     def _run_mesh_fit(self, x, *, whiten: bool):
         """Sharded fit scaffolding shared by the whitened and
-        whiten=False paths: key split, padded row-sharding, eager
-        kernel probes, the jitted ``fast_ica_fit``, certificate checks
-        (the whitening-eigh certificate only exists when whitening
-        ran), and state install."""
-        from ..ops.jacobi import warm_kernel_probes
-        from ..ops.pallas.replication import replicated_kernel_mesh
+        whiten=False paths: key split, padded row-sharding, the jitted
+        ``fast_ica_fit``, certificate checks (the whitening-eigh
+        certificate only exists when whitening ran), and state
+        install."""
         from ..parallel.distributed import fast_ica_fit
         from ..parallel.mesh import shard_rows_padded
 
         self._key, subkey = jax.random.split(self._key)
         x_sh, n_true = shard_rows_padded(x, self._mesh)
-        # Sharded trace: VMEM kernels run replicated via shard_map.
-        warm_kernel_probes(x.dtype)
-        with replicated_kernel_mesh(self._mesh):
-            st = fast_ica_fit(
-                x_sh, subkey,
-                fun=self._fun, tol=self._tol, max_iter=self._max_iter,
-                n_valid=n_true if n_true != x_sh.shape[0] else None,
-                n_components=self._n_components if whiten else None,
-                whiten=whiten,
-                decorrelation=resolve_decorrelation(self._decorrelation),
-                precision=resolve_iteration_precision(
-                    self._iteration_precision, x.dtype
-                ),
-                cfg=_config.cache_key() + (self._mesh,),
-            )
+        # The mesh joins the jit cache key so mesh and single-device
+        # traces never alias.
+        st = fast_ica_fit(
+            x_sh, subkey,
+            fun=self._fun, tol=self._tol, max_iter=self._max_iter,
+            n_valid=n_true if n_true != x_sh.shape[0] else None,
+            n_components=self._n_components if whiten else None,
+            whiten=whiten,
+            decorrelation=resolve_decorrelation(self._decorrelation),
+            precision=resolve_iteration_precision(
+                self._iteration_precision, x.dtype
+            ),
+            cfg=_config.cache_key() + (self._mesh,),
+        )
         if whiten:
             _linalg.check_certificate(
                 st["off"], _common.real_dtype(x.dtype), x.shape[1],
@@ -633,8 +638,9 @@ class FastIca:
         return None  # fit_transform routes through transform()
 
     def _inner_fit_impl(self, x):
-        """ref: ica.rs:167-221.  Returns the centered, transposed data
-        (d × n), as the reference does."""
+        """ref: ica.rs:167-221.  Returns the centered data (n × d; the
+        reference returns its transpose) for ``fit_transform``, or
+        ``None`` where the fit never materialized it."""
         n, d = x.shape
         if not self._whiten:
             if n == 0 or d == 0:
@@ -665,23 +671,19 @@ class FastIca:
             self._means = means
             self._n_iter = 0
             if n == 0:
-                return jnp.zeros((d, 0), x.dtype)
-            return (x - means).T
+                return jnp.zeros((0, d), x.dtype)
+            return x - means
 
         if self._mesh is not None:
             return self._run_mesh_fit(x, whiten=True)
 
-        means = jnp.mean(x, axis=0)
-        xt = (x - means).T  # (d, n) — ref: ica.rs:178-188
+        means = jnp.mean(x, axis=0)  # ref: ica.rs:178-188
 
         # "auto": the reference-faithful SVD whitening (ica.rs:189)
-        # everywhere it is cheap, but f64 on an accelerator pays an
-        # emulation-bound Householder QR inside the tall-SVD
-        # preconditioning (~800 ms on a 100k×64 panel) — the Gram/eigh
-        # whitening replaces it with one fast emulated gemm + a small
-        # eigh (measured: 64-source 100k-sample f64 fit 5.0 s → 2.7 s).
-        # Whitening accuracy is tol-bounded by the ICA iteration either
-        # way.
+        # everywhere but f64 on an accelerator, where the Gram/eigh
+        # whitening replaces the tall-SVD's Householder QR with one
+        # gemm + a small eigh.  Whitening accuracy is tol-bounded by
+        # the ICA iteration either way.
         solver = self._whiten_solver
         if solver == "auto":
             solver = (
@@ -690,7 +692,9 @@ class FastIca:
                 and _linalg.effective_platform() != "cpu"
                 else "svd"
             )
-        kmat, _sigma, whiten_off = _whitening_matrix(xt, k, solver)
+        # Centering happens inside each jitted product: at scale every
+        # materialized n×d copy is as large as the data.
+        kmat, _sigma, whiten_off = _whitening_matrix(x, means, k, solver)
         if solver == "eigh":
             _linalg.check_certificate(
                 whiten_off, _common.real_dtype(x.dtype), d,
@@ -698,7 +702,8 @@ class FastIca:
             )
         # X₁ = K·Xᵀ·√n  (ref: ica.rs:204-208; the √n factor makes the
         # whitened rows unit-variance under the 1/n inner product).
-        x1 = mdot(kmat, xt) * jnp.sqrt(jnp.asarray(n, x.dtype))
+        x1 = _whiten_rows(kmat, x, means, _config.matmul_precision)
+        x1 = x1 * jnp.sqrt(jnp.asarray(n, x.dtype))
 
         self._key, subkey = jax.random.split(self._key)
         w_init = rng_util.normal(subkey, (k, k), x.dtype)
@@ -714,7 +719,7 @@ class FastIca:
         self._components = mdot(w, kmat)  # ref: ica.rs:217
         self._means = means
         self._n_iter = n_iter
-        return xt
+        return None
 
 
     def _fit_no_whiten(self, x):
@@ -742,7 +747,7 @@ class FastIca:
         self._components = w
         self._means = jnp.zeros((d,), _common.real_dtype(x.dtype))
         self._n_iter = n_iter
-        return xt
+        return x
 
 def decorrelation_certificate(w):
     """Certificate that symmetric decorrelation succeeded: ``G = W·Wᴴ``
@@ -767,7 +772,7 @@ def check_decorrelation_value(
 ) -> None:
     """Raise ``LinalgError`` when a decorrelation certificate value
     exceeds its (loose) tolerance — failures are O(1), so eps**0.25
-    separates them cleanly from Newton–Schulz/df64 working-precision
+    separates them cleanly from Newton–Schulz/ds64 working-precision
     residue.  NaN certificates fail the check (``not (err <= tol)``)."""
     from ..config import config as cfg
     from ..errors import LinalgError
@@ -788,22 +793,39 @@ def check_decorrelation(w, what: str = "symmetric decorrelation") -> None:
     )
 
 
-def _whitening_matrix(xt, k: int, solver: str):
-    """K such that K·Xᵀ has decorrelated unit-ish rows
+@jax.jit
+def _centered_gram(x, means):
+    """``XcᴴXc`` with ``Xc = X − μ`` formed inside the program (neither
+    Xc nor its transpose outlives it); float32 data accumulate in
+    float64 (``ops.centered.gram_acc64``)."""
+    from ..ops.centered import gram_acc64
+
+    return gram_acc64(x - means).astype(x.dtype)
+
+
+@partial(jax.jit, static_argnames=("precision",))
+def _whiten_rows(kmat, x, means, precision):
+    """``K·(X − μ)ᵀ`` with the centered copy and its transpose formed
+    inside the program."""
+    return jnp.dot(kmat, (x - means).T, precision=precision)
+
+
+def _whitening_matrix(x, means, k: int, solver: str):
+    """K such that K·(X − μ)ᵀ has decorrelated unit-ish rows
     (ref: ica.rs:189-203, with the C13 bug fixed: all d columns filled).
 
-    ``svd``: K = (U[:, :k]/σ[:k])ᵀ from the thin SVD of Xᵀ (d × n).
-    ``eigh``: same matrix from eigh(Xᵀ·X) — U are the eigenvectors of the
-    d×d Gram, σ = √λ; one big MXU matmul instead of an SVD of the full
+    ``svd``: K = (U[:, :k]/σ[:k])ᵀ from the thin SVD of (X − μ)ᵀ (d × n).
+    ``eigh``: same matrix from eigh(XcᵀXc) — U are the eigenvectors of
+    the d×d Gram, σ = √λ; one big matmul instead of an SVD of the full
     data, and the Gram reduces over samples (one psum when row-sharded).
     """
     if solver == "svd":
         # svd() raises LinalgError itself on non-convergence.
-        u, sigma, _ = svd(xt, compute_vt=False)
+        u, sigma, _ = svd((x - means).T, compute_vt=False)
         off = jnp.zeros((), jnp.real(sigma).dtype)
-        return (*_whitening_from_spectrum(u, sigma, k, max(xt.shape)), off)
+        return (*_whitening_from_spectrum(u, sigma, k, max(x.shape)), off)
     return whitening_from_gram(
-        _linalg.mdot(xt, xt.conj().T), k, max(xt.shape)
+        _centered_gram(x, means), k, max(x.shape)
     )
 
 
@@ -914,7 +936,7 @@ class FastIcaBuilder:
 
     def decorrelation(self, method: str) -> "FastIcaBuilder":
         """In-loop symmetric decorrelation: ``"eigh"`` (reference-exact),
-        ``"ns"`` (matmul-only Newton-Schulz, MXU-friendly), or
+        ``"ns"`` (matmul-only Newton-Schulz), or
         ``"auto"`` (ns on accelerators, eigh on CPU — see
         :func:`resolve_decorrelation`)."""
         self._decorrelation = method
@@ -923,9 +945,9 @@ class FastIcaBuilder:
     def iteration_precision(self, precision: str) -> "FastIcaBuilder":
         """Fixed-point iteration precision: ``"full"`` (data dtype,
         reference-faithful), ``"f32"`` (float32 iterate + float64
-        polish for f64 data — the per-step k×n matmuls skip XLA's ~8×
-        f64 emulation), or ``"auto"`` (``"f32"`` for f64 on an
-        accelerator, ``"full"`` otherwise)."""
+        polish for f64 data — the per-step k×n matmuls run at the f32
+        rate), or ``"auto"`` (``"f32"`` for f64 on an accelerator,
+        ``"full"`` otherwise)."""
         self._iteration_precision = precision
         return self
 

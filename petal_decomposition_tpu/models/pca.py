@@ -1,8 +1,8 @@
 """Exact (full-SVD) principal component analysis.
 
-TPU-native rebuild of the reference's ``Pca``/``PcaBuilder``
+JAX rebuild of the reference's ``Pca``/``PcaBuilder``
 (ref: pca.rs:41-283).  The fit is a pure function over jax arrays — mean
-centering, thin SVD (Jacobi on TPU for f64 accuracy), deterministic sign
+centering, thin SVD (in-house routes off the CPU), deterministic sign
 flip, component extraction — wrapped in a small stateful class that
 mirrors the reference API surface exactly:
 
@@ -27,11 +27,18 @@ from . import _common
 
 __all__ = ["Pca", "PcaBuilder"]
 
+# Widest f32 data that ``solver="auto"`` keeps on the direct SVD off the
+# CPU.  The bound is that of a retired single-block Jacobi kernel
+# (its 400,000-element padded-panel budget), kept so that routing stays
+# as it was until the GPU's own crossover is measured.
+_DIRECT_SVD_MAX_D = 632
+
 
 @partial(jax.jit, static_argnames=("centering", "n_valid", "cfg"))
 def _fit_exact(x, *, centering: bool, n_valid: int | None = None, cfg=None):
     """Whole exact-SVD fit as one XLA computation: centering, thin SVD
-    (Jacobi on TPU), deterministic sign flip, total variance.  A single
+    (:func:`~..ops.linalg.svd_jit_cert`), deterministic sign flip, total
+    variance.  A single
     device dispatch instead of one per op — the Rust pipeline's
     inner_fit (pca.rs:195-231) as one compiled program.  ``cfg`` is a
     jit-cache key (config snapshot), unused in-body.
@@ -217,33 +224,30 @@ class Pca:
 
     @staticmethod
     def _auto_prefers_gram(x) -> bool:
-        """Since round 2 the direct path serves every f32 width: VMEM
-        Jacobi kernels where they fit, MXU-native QDWH-SVD beyond
-        (backward stable — no Gram κ² squaring; ``ops/jacobi.py:
-        _qdwh_svd``).  ``auto`` keeps the Gram/eigh route only for the
-        genuinely Gram-shaped regime — n ≫ d, where one d×d Gram matmul
-        replaces an n-row QR+polar sweep (e.g. the 1M×4096 north-star
-        shape: Gram reads X once; the direct QR would dominate).
-        Accuracy trade there: σ through the Gram square to ~eps·κ(X)²;
-        pass ``solver="full"`` to force the direct SVD regardless."""
+        """``auto`` keeps the direct SVD (QDWH-SVD off the CPU: backward
+        stable, no Gram κ² squaring) except in the genuinely
+        Gram-shaped regime — f32, wider than ``_DIRECT_SVD_MAX_D`` (or a
+        single column) and n ≥ 8d, where one d×d Gram matmul replaces
+        an n-row QR+polar sweep (e.g. the 1M×4096 north-star shape:
+        Gram reads X once; the direct QR would dominate).  Accuracy
+        trade there: σ through the Gram square to ~eps·κ(X)²; pass
+        ``solver="full"`` to force the direct SVD regardless."""
+        from ..ops.linalg import effective_platform
+
         if x.dtype != jnp.float32:
             return False
-        if jax.default_backend() == "cpu":
+        if effective_platform() == "cpu":
             return False  # LAPACK handles any width
-        from ..ops.pallas import jacobi_kernels
-
         n, d = x.shape
-        direct_ok = jacobi_kernels.supports(n, d, x.dtype)
-        qr_precond_ok = jacobi_kernels.supports(d + (d % 2), d, x.dtype)
-        if direct_ok or qr_precond_ok:
+        if 2 <= d <= _DIRECT_SVD_MAX_D:
             return False
         return n >= 8 * d
 
     def _inner_fit(self, x):
         self._stream = None  # a full fit restarts any partial_fit stream
         # Complex fits on an accelerator run host-side (the
-        # reference's c32/c64 support is CPU LAPACK; complex XLA:TPU
-        # programs are impractical — see _common.complex_host_ctx).
+        # reference's c32/c64 support is CPU LAPACK — see
+        # _common.complex_host_ctx).
         # An explicit mesh wins: mesh fits are never redirected —
         # but complex on an accelerator mesh is a defined, tested
         # error (see _common.check_mesh_complex).
@@ -278,28 +282,16 @@ class Pca:
             x, n_true = shard_rows_padded(x, self._mesh)
             n_valid = n_true if n_true != x.shape[0] else None
 
+        # The mesh joins the jit cache key so mesh and single-device
+        # traces never alias.
+        suffix = () if self._mesh is None else (self._mesh,)
         if use_gram:
-            import contextlib
-
-            from ..ops.jacobi import warm_kernel_probes
-            from ..ops.pallas.replication import replicated_kernel_mesh
             from ..parallel.distributed import pca_fit_gram
 
-            # Sharded traces run the VMEM kernels replicated per-device
-            # via shard_map (pallas_call alone has no GSPMD partitioning
-            # rule); the mesh joins the cache key so mesh and
-            # single-device traces never alias.
-            warm_kernel_probes(x.dtype)
-            if self._mesh is not None:
-                ctx = replicated_kernel_mesh(self._mesh)
-                suffix = (self._mesh,)
-            else:
-                ctx, suffix = contextlib.nullcontext(), ()
-            with ctx:
-                st = pca_fit_gram(
-                    x, centering=self._centering, n_valid=n_valid,
-                    cfg=config.cache_key() + suffix,
-                )
+            st = pca_fit_gram(
+                x, centering=self._centering, n_valid=n_valid,
+                n_components=k, cfg=config.cache_key() + suffix,
+            )
             u, sigma, vt = st["u"][:n], st["sigma"], st["vt"]
             means = st["means"]
             # Surface eigensolver non-convergence like every other path
@@ -342,26 +334,13 @@ class Pca:
                 float(sigma_h @ sigma_h), real
             )
         else:
-            import contextlib
-
-            from ..ops.jacobi import warm_kernel_probes
-            from ..ops.pallas.replication import replicated_kernel_mesh
-
             # Mesh + solver='full': the padded, sharded x reaches the
-            # jitted SVD directly — the kernels run replicated via
-            # shard_map (the operand is gathered to each device) and the
-            # fit masks the padded rows (n_valid).
-            warm_kernel_probes(x.dtype)
-            if self._mesh is not None:
-                ctx = replicated_kernel_mesh(self._mesh)
-                suffix = (self._mesh,)
-            else:
-                ctx, suffix = contextlib.nullcontext(), ()
-            with ctx:
-                u, sigma, vt, means, total_var, off = _fit_exact(
-                    x, centering=self._centering, n_valid=n_valid,
-                    cfg=config.cache_key() + suffix,
-                )
+            # jitted SVD directly and the fit masks the padded rows
+            # (n_valid).
+            u, sigma, vt, means, total_var, off = _fit_exact(
+                x, centering=self._centering, n_valid=n_valid,
+                cfg=config.cache_key() + suffix,
+            )
             u = u[:n]
             if config.check_convergence:
                 _linalg.check_certificate(

@@ -1,6 +1,6 @@
 """Randomized (Halko) truncated-SVD principal component analysis.
 
-TPU-native rebuild of the reference's ``RandomizedPca`` /
+JAX rebuild of the reference's ``RandomizedPca`` /
 ``RandomizedPcaBuilder`` (ref: pca.rs:317-663) and the private
 ``randomized_svd`` / ``randomized_range_finder`` pipeline
 (ref: pca.rs:665-718).
@@ -16,7 +16,7 @@ Reference defaults are preserved and promoted to parameters:
 * total variance is the squared Frobenius norm of the centered data
   (pca.rs:533,537-539), *not* Σσ² — randomized σ are truncated.
 
-The whole pipeline is MXU-dominated: the sketch ``X·Ω``, the 14
+The whole pipeline is matmul-dominated: the sketch ``X·Ω``, the 14
 power-iteration matmuls, the projection ``Qᵀ·X`` and ``Q·U_B`` are large
 dense matmuls; the only factorizations are on (k+10)-wide panels.
 """
@@ -113,8 +113,7 @@ class RandomizedPca:
                  power_iteration_normalizer: str = "auto", mesh=None,
                  finder_precision: str = "auto",
                  range_finder: str = "auto",
-                 gram_precision: str = "auto",
-                 gram_projection: str = "auto"):
+                 gram_precision: str = "auto"):
         if n_components < 0:
             raise InvalidInput("n_components must be non-negative")
         if power_iteration_normalizer not in ("auto",) + _NORMALIZERS:
@@ -130,8 +129,8 @@ class RandomizedPca:
         # CPU — the reference's normalizer, pca.rs:709-713 — and
         # matmul-only CholeskyQR2 on accelerators and meshes, where
         # LU's min(m,n)-step sequential pivoting loop is
-        # dispatch-latency-bound (42 dependent passes over the panel on
-        # TPU) and would also serialize across shards.
+        # launch-latency-bound (42 dependent passes over the panel) and
+        # would also serialize across shards.
         self._normalizer = power_iteration_normalizer
         if finder_precision not in ("auto", "f32", "full"):
             raise ValueError(f"unknown finder precision {finder_precision!r}")
@@ -139,16 +138,8 @@ class RandomizedPca:
             raise ValueError(f"unknown range finder {range_finder!r}")
         if gram_precision not in ("auto", "default", "high", "highest"):
             raise ValueError(f"unknown gram precision {gram_precision!r}")
-        if gram_projection not in ("auto", "data", "gram"):
-            raise ValueError(f"unknown gram projection {gram_projection!r}")
         self._range_finder = range_finder
         self._gram_precision = gram_precision
-        # Recovery evaluation on the Gram-finder path: "data" projects
-        # B = QᵀX against the exact data (two extra passes), "gram"
-        # reconstructs the identical recovery from Gc's l×l algebra
-        # with zero extra passes (σ at the Gram's grade); "auto" is
-        # measured per platform (distributed._resolve_gram_projection).
-        self._gram_projection = gram_projection
         # Range-finder precision: "auto" runs the sketch/power-iteration
         # gemms of float64 fits in float32 on accelerators (the final
         # projection/SVD stay f64 — quadratic Rayleigh-Ritz recovery
@@ -283,8 +274,8 @@ class RandomizedPca:
     def _inner_fit(self, x):
         self._stream = None  # a full fit restarts any partial_fit stream
         # Complex fits on an accelerator run host-side (the
-        # reference's c32/c64 support is CPU LAPACK; complex XLA:TPU
-        # programs are impractical — see _common.complex_host_ctx).
+        # reference's c32/c64 support is CPU LAPACK — see
+        # _common.complex_host_ctx).
         # An explicit mesh wins: mesh fits are never redirected —
         # but complex on an accelerator mesh is a defined, tested
         # error (see _common.check_mesh_complex).
@@ -297,7 +288,7 @@ class RandomizedPca:
 
     def _resolve_normalizer(self, x) -> str:
         """Platform-aware ``"auto"``: the default constructor path IS
-        the benchmarked path on accelerators (VERDICT r2 weak #3)."""
+        the benchmarked path on accelerators."""
         if self._normalizer != "auto":
             return self._normalizer
         if self._mesh is not None:
@@ -320,44 +311,25 @@ class RandomizedPca:
         self._key, subkey = jax.random.split(self._key)
 
         if self._mesh is not None:
-            from ..ops.jacobi import warm_kernel_probes
-            from ..ops.pallas.replication import replicated_kernel_mesh
             from ..parallel.distributed import randomized_pca_fit
             from ..parallel.mesh import shard_rows_padded
 
             x_sh, n_true = shard_rows_padded(x, self._mesh)
-            # Sharded trace: VMEM kernels run replicated via shard_map;
-            # the fused sketch+moments kernel runs per shard (probe must
-            # run eagerly, before the jitted fit traces).
-            warm_kernel_probes(x.dtype)
-            fused_ok = False
-            if (
-                jnp.dtype(x.dtype) == jnp.float32
-                # Skip the (compile + run) probe when the trace could
-                # never dispatch the kernel anyway.
-                and self._range_finder != "direct"
-                and self._gram_precision in ("auto", "default")
-            ):
-                from ..ops.pallas import sketch_kernel as _sketch_kernel
-
-                fused_ok = _sketch_kernel.mesh_kernel_available(self._mesh)
-            with replicated_kernel_mesh(self._mesh):
-                st = randomized_pca_fit(
-                    x_sh, subkey,
-                    n_components=k,
-                    centering=self._centering,
-                    n_oversamples=self._n_oversamples,
-                    n_power_iters=self._n_power_iters,
-                    normalizer=self._resolve_normalizer(x),
-                    n_valid=n_true if n_true != x_sh.shape[0] else None,
-                    finder_precision=self._finder_precision,
-                    range_finder=self._range_finder,
-                    gram_precision=self._gram_precision,
-                    gram_projection=self._gram_projection,
-                    fused_sketch=fused_ok,
-                    kernel_mesh=self._mesh if fused_ok else None,
-                    cfg=_config.cache_key() + (self._mesh,),
-                )
+            # The mesh joins the jit cache key so mesh and single-device
+            # traces never alias.
+            st = randomized_pca_fit(
+                x_sh, subkey,
+                n_components=k,
+                centering=self._centering,
+                n_oversamples=self._n_oversamples,
+                n_power_iters=self._n_power_iters,
+                normalizer=self._resolve_normalizer(x),
+                n_valid=n_true if n_true != x_sh.shape[0] else None,
+                finder_precision=self._finder_precision,
+                range_finder=self._range_finder,
+                gram_precision=self._gram_precision,
+                cfg=_config.cache_key() + (self._mesh,),
+            )
             u, sigma, vt = st["u"][:n], st["sigma"], st["vt"]
             means = st["means"]
             # Check before mutating: a failed refit must leave a
@@ -378,19 +350,15 @@ class RandomizedPca:
         # for small problems everywhere) the pipeline keeps explicit
         # centering and Householder final QR for reference-parity
         # rounding (the Halko flow is identical to pca.rs:665-718).
-        from ..ops.jacobi import warm_kernel_probes
-        from ..parallel.distributed import randomized_pca_fit
-
         from ..ops.linalg import effective_platform
+        from ..parallel.distributed import randomized_pca_fit
 
         # Large fits on an accelerator take the fast rounding-
         # equivalent route: fused rank-1 centering (no materialized
         # X−μ copy, one less full HBM pass) and matmul-only CholeskyQR2
         # final orthonormalization (Householder QR on a 1M×42 panel is
-        # sequential-panel-bound on TPU: the default-constructor fit
-        # measured 150 ms with QR+explicit centering vs 66 ms with
-        # this route, round-3 FLAGSHIP_PROBE).  Small fits keep the
-        # reference-parity rounding — they are dispatch-latency-bound
+        # a sequence of dependent panel updates).  Small fits keep the
+        # reference-parity rounding — they are launch-latency-bound
         # anyway and the golden-value tests pin their exact outputs.
         accel_fast = (
             effective_platform() != "cpu" and n * d >= (1 << 22)
@@ -399,22 +367,9 @@ class RandomizedPca:
         if not accel_fast and effective_platform() != "cpu" and jnp.dtype(
             x.dtype
         ) in (jnp.float64, jnp.complex128):
-            # f64 Householder QR is emulation-bound at any size
-            # (measured 879 ms on a 100k×42 panel vs ~40 ms CholeskyQR2).
+            # f64 Householder QR chose CholeskyQR2 at every size on the
+            # earlier accelerator; not yet re-measured on the GPU.
             final_orth = "cholqr2"
-        warm_kernel_probes(x.dtype)
-        # Fused sketch+moments kernel (Gram-finder path): probe must
-        # run eagerly, before the jitted fit traces.
-        fused_ok = False
-        if (
-            accel_fast
-            and jnp.dtype(x.dtype) == jnp.float32
-            and self._range_finder != "direct"
-            and self._gram_precision in ("auto", "default")
-        ):
-            from ..ops.pallas import sketch_kernel as _sketch_kernel
-
-            fused_ok = _sketch_kernel.kernel_available()
         st = randomized_pca_fit(
             x, subkey,
             n_components=k,
@@ -427,8 +382,6 @@ class RandomizedPca:
             finder_precision=self._finder_precision,
             range_finder=self._range_finder,
             gram_precision=self._gram_precision,
-            gram_projection=self._gram_projection,
-            fused_sketch=fused_ok,
             cfg=_config.cache_key(),
         )
         u, sigma, vt = st["u"], st["sigma"], st["vt"]
@@ -465,7 +418,6 @@ class RandomizedPcaBuilder:
         self._finder_precision = "auto"
         self._range_finder = "auto"
         self._gram_precision = "auto"
-        self._gram_projection = "auto"
 
     @classmethod
     def new(cls, n_components: int) -> "RandomizedPcaBuilder":
@@ -518,19 +470,11 @@ class RandomizedPcaBuilder:
         """Gram-pass matmul precision for the gram range finder and the
         streamed (``fit_batched``/``partial_fit``) accumulation:
         ``"auto"`` | ``"default"`` | ``"high"`` | ``"highest"``.  In-core
-        ``"auto"`` is bf16-grade (quadratically absorbed by the
-        exact-data recovery); streamed f32 ``"auto"`` is ``"high"``
-        (σ come off the Gram at first order — measured grades in
-        benchmarks/GRAM_GRADE.json)."""
+        f32 ``"auto"`` is ``"default"`` (the Gram only builds the
+        subspace); streamed f32 ``"auto"`` is ``"highest"`` (σ come off
+        the Gram at first order).  On the GPU ``"default"`` and
+        ``"high"`` run f32 dots in TF32; ``"highest"`` is true f32."""
         self._gram_precision = precision
-        return self
-
-    def gram_projection(self, projection: str) -> "RandomizedPcaBuilder":
-        """Recovery evaluation for the gram range finder: ``"auto"`` |
-        ``"data"`` (project B = QᵀX against the exact data) | ``"gram"``
-        (zero-pass l×l Gram-algebra recovery; σ at the Gram's grade —
-        see ``distributed.randomized_pca_fit``)."""
-        self._gram_projection = projection
         return self
 
     def build(self) -> RandomizedPca:
@@ -546,5 +490,4 @@ class RandomizedPcaBuilder:
             finder_precision=self._finder_precision,
             range_finder=self._range_finder,
             gram_precision=self._gram_precision,
-            gram_projection=self._gram_projection,
         )

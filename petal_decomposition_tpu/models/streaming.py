@@ -3,9 +3,9 @@
 The reference requires the whole n×d matrix materialized in host RAM
 before any fit starts (``inner_fit`` takes a full ``ArrayBase``,
 pca.rs:195-231, 509-550) — its scaling ceiling is one machine's memory.
-On TPU the binding resource is chip HBM (~16 GB on v5e): a 10M×4096 f32
-matrix is 160 GB and can never reside on the device at once.  The
-TPU-native answer is a single-pass streamed fit: row blocks flow
+On an accelerator the binding resource is device memory (80 GB on an
+H100): a 10M×4096 f32 matrix is 160 GB and can never reside on the
+device at once.  The answer is a single-pass streamed fit: row blocks flow
 host→device on a prefetch worker thread (block production, H2D DMA,
 and the accumulation matmul pipeline three-deep — see
 :func:`_device_prefetch`), and the chip accumulates exactly what every
@@ -29,9 +29,8 @@ Numerical contract (single pass, shifted accumulation):
   trivially cheap next to the block matmul on CPU), so accumulation
   error is independent of the number of blocks; the factorization then
   runs at the data dtype.  Exception: the explicit
-  ``gram_precision="default"`` (bf16) mode on accelerators carries the
-  Gram in f32 — uniform with its product grade, and the emulated-f64
-  d×d add it drops costs ~5 ms per 4096-wide block on a v5e (moment
+  ``gram_precision="default"`` (TF32 on the GPU) mode on accelerators
+  carries the Gram in f32 — uniform with its product grade (moment
   vectors stay f64 across blocks everywhere).
 * Singular values are read off the Gram (σ = √λ), squaring the
   condition number: f64 streams keep ~1e-9-grade σ, f32 streams are
@@ -88,8 +87,8 @@ __all__ = [
 ]
 
 # 64k rows keeps a d=4096 f32 block at 1 GB and a d=1024 one at 256 MB —
-# deep enough that the MXU matmul amortizes dispatch, small enough to
-# double-buffer comfortably in HBM.
+# deep enough that the block matmul amortizes dispatch, small enough to
+# double-buffer comfortably in device memory.
 _DEFAULT_BLOCK_ROWS = 65536
 
 
@@ -99,37 +98,25 @@ def _accum_step(carry, block, shift, n_valid, *, precision):
 
     ``carry`` (donated — the d×d accumulator is updated in place) holds
     ``(g, s, sq)``: ``s``/``sq`` float64, ``g`` float64 or — for the
-    explicit bf16 Gram grade on accelerators — float32 (see the module
-    docstring).  ``n_valid`` is a dynamic scalar: the final
+    explicit ``"default"`` Gram grade on accelerators — float32 (see the
+    module docstring).  ``n_valid`` is a dynamic scalar: the final
     partial block is zero-padded to the uniform block shape and masked
     here, so the whole stream compiles exactly one step program.
-
-    Stays plain XLA by measurement: a Pallas prep kernel fusing the
-    shift/mask/bf16-cast/moments into one block read measured 19.2 vs
-    16.4 ms/block at 65536×4096 (v5e, round 5) — XLA already fuses the
-    convert into the dot's operand read, so the kernel's explicit bf16
-    materialization ADDED a pass (DESIGN.md §3).
     """
     from ..parallel.distributed import _gram_of
 
     g, s, sq = carry
     rows = (jnp.arange(block.shape[0]) < n_valid)[:, None]
     xb = jnp.where(rows, block - shift.astype(block.dtype), 0)
-    # _gram_of owns the precision contract ("default" on accelerator
-    # f32 = one bf16 MXU pass — the same arithmetic as the in-core
-    # Gram finder and its guard rating).
+    # _gram_of owns the precision contract (the same arithmetic as the
+    # in-core Gram finder and its guard rating).
     g = g + _gram_of(xb, precision).astype(g.dtype)
     # Per-block moments at the block dtype, f64 across blocks — but
-    # ONLY for the "default" (bf16-Gram) grade on accelerators, the
-    # same gate as the f32 Gram carry in ``_accumulate_chunks``:
-    # emulated-f64 reductions cost 10.6 ms per 65k×4096 block on a v5e
-    # (measured ablation, benchmarks/NORTH_STAR.json) vs 5.9 ms in f32,
-    # and f32-accumulate-then-widen is the grade the in-core fused
-    # sketch kernel gives `mean_`/`total_variance` (~1e-6 relative per
-    # block, exact f64 across blocks).  "high"/"highest" keep the full
-    # f64 per-block reductions their grade promises (the
-    # highest-grade Gram dominates wall time there anyway); CPU keeps
-    # f64 always (native).
+    # ONLY for the "default" Gram grade on accelerators, the same gate
+    # as the f32 Gram carry in ``_accumulate_chunks`` (~1e-6 relative
+    # per block, exact f64 across blocks — below that grade's own
+    # error).  "high"/"highest" keep the full f64 per-block reductions
+    # their grade promises; CPU keeps f64 always.
     from ..ops.linalg import effective_platform
 
     moment_dtype = (
@@ -186,7 +173,7 @@ def _coerce_block(b, dtype):
     if np.issubdtype(b.dtype, np.complexfloating):
         raise InvalidInput(
             "streamed fits support real dtypes only (complex fits "
-            "are host-redirected and in-core; DESIGN.md §2)"
+            "are host-redirected and in-core; DESIGN.md §1)"
         )
     if dtype is None:
         # First block decides the stream dtype (as_matrix rules:
@@ -500,29 +487,19 @@ def _fold_process_moments(g, s, sq, n: int, n_blocks: int):
     )
 
 
-def _resolve_stream_precision(setting: str, dtype) -> str:
-    """Resolve ``"auto"`` once the stream's dtype is known (first chunk).
+def _resolve_stream_precision(setting: str) -> str:
+    """Resolve ``"auto"``: ``"highest"`` for every dtype and platform.
 
-    f32 streams on accelerators get ``"high"`` — 3-pass bf16, measured
-    2.7e-6 relative σ against the ``"highest"`` accumulation on an
-    adversarial κ≈1e3 mean-dominated spectrum at the 16×65536×4096
-    north-star stream (benchmarks/GRAM_GRADE.json), comfortably inside
-    the 1e-5 f32 parity band at 68% of the ``"highest"`` wall
-    (1.11 vs 1.63 s).  ``"default"`` (one bf16 pass) measured 9.8e-6 on
-    the same spectrum — at the band's edge, so it stays opt-in.
-    Everything else (f64 data, CPU) keeps ``"highest"``: f64 grades are
-    indistinguishable there and CPU executes every grade as true
-    f32/f64 GEMMs anyway."""
-    from ..ops.linalg import effective_platform
-
-    if setting != "auto":
-        return setting
-    return (
-        "high"
-        if (np.dtype(dtype) == np.float32
-            and effective_platform() != "cpu")
-        else "highest"
-    )
+    A streamed solve reads σ off the Gram at first order, so the Gram
+    must carry the 1e-5 f32 band.  On the H100 ``"high"`` and
+    ``"default"`` run f32 dots in TF32: at the 1M×1024 f32 flagship
+    stream (H100 80GB HBM3, power limit 700 W) ``"high"`` measured
+    3.0e-5 relative σ against an f64 reference while ``"highest"``
+    (true f32) passes.  The flagship stream moves 4.1 GB from the host
+    against a ~40 ms ``"highest"`` Gram, so the copy should bound it
+    rather than the grade; no trace has shown that yet.  Explicit
+    grades pass through untouched."""
+    return "highest" if setting == "auto" else setting
 
 
 def _init_stream_carry(st: _StreamState, chunk, n_valid: int,
@@ -532,9 +509,7 @@ def _init_stream_carry(st: _StreamState, chunk, n_valid: int,
     it), and the accumulator dtypes."""
     st.d = chunk.shape[1]
     st.dtype = chunk.dtype
-    st.precision = precision = _resolve_stream_precision(
-        precision, chunk.dtype
-    )
+    st.precision = precision = _resolve_stream_precision(precision)
     if st.shift is None:
         # Provisional shift: the first chunk's column mean.  Any
         # shift works (the finalize re-centers exactly); a
@@ -545,12 +520,11 @@ def _init_stream_carry(st: _StreamState, chunk, n_valid: int,
             else np.zeros((st.d,), np.float64)
         )
         st.shift = put_repl(shift)
-    # Gram carry at the product grade: for the explicit
-    # "default" (bf16) mode on accelerators the f64 inter-block
-    # add buys nothing (the bf16 product error ~6e-6 dwarfs the
-    # √B·eps_f32 ≈ 8e-7 of B=160 f32 adds) and the emulated-f64
-    # d×d add costs ~5 ms per 4096-wide block on a v5e;
-    # "high"/"highest" keep the f64 carry their grade promises.
+    # Gram carry at the product grade: for the explicit "default"
+    # mode on accelerators the f64 inter-block add buys nothing (the
+    # one-pass product error dwarfs the √B·eps_f32 ≈ 8e-7 of B=160
+    # f32 adds); "high"/"highest" keep the f64 carry their grade
+    # promises.
     from ..ops.linalg import effective_platform
 
     g_dtype = (
@@ -714,23 +688,10 @@ def accumulate_moments(blocks, *, centering: bool = True,
     return _moments_from_state(st, centering)
 
 
-def _solve_ctx(dtype, mesh):
-    """Eager setup every factorization trace needs (mirrors the in-core
-    fit paths, pca.py:227-248): the VMEM-kernel availability probes must
-    run before tracing (the tracer branch of ``eigh_psd_jit_cert``
-    consults them), mesh traces must replicate ``pallas_call`` via
-    ``shard_map`` (a bare kernel has no GSPMD partitioning rule), and
-    the mesh joins the jit cache key so mesh and single-device traces
-    never alias."""
-    import contextlib
-
-    from ..ops.jacobi import warm_kernel_probes
-    from ..ops.pallas.replication import replicated_kernel_mesh
-
-    warm_kernel_probes(dtype)
-    if mesh is not None:
-        return replicated_kernel_mesh(mesh), (mesh,)
-    return contextlib.nullcontext(), ()
+def _mesh_key(mesh) -> tuple:
+    """jit cache-key suffix: the mesh joins the key so mesh and
+    single-device traces never alias."""
+    return () if mesh is None else (mesh,)
 
 
 @partial(jax.jit, static_argnames=("cfg",))
@@ -757,11 +718,9 @@ def exact_pca_from_gram(m: StreamMoments, mesh=None):
     >>> vt.shape
     (4, 4)
     """
-    ctx, suffix = _solve_ctx(m.dtype, mesh)
-    with ctx:
-        return _exact_solve(
-            m.gram.astype(m.dtype), cfg=config.cache_key() + suffix
-        )
+    return _exact_solve(
+        m.gram.astype(m.dtype), cfg=config.cache_key() + _mesh_key(mesh)
+    )
 
 
 def randomized_pca_from_gram(m: StreamMoments, key, *, n_components: int,
@@ -793,12 +752,11 @@ def randomized_pca_from_gram(m: StreamMoments, key, *, n_components: int,
     d = m.gram.shape[0]
     l = min(n_components + n_oversamples, m.n_samples, d)
     omega = rng_util.normal(key, (d, l), m.dtype)
-    ctx, suffix = _solve_ctx(m.dtype, mesh)
-    with ctx:
-        return _randomized_solve(
-            m.gram.astype(m.dtype), omega,
-            n_power_iters=n_power_iters, cfg=config.cache_key() + suffix,
-        )
+    return _randomized_solve(
+        m.gram.astype(m.dtype), omega,
+        n_power_iters=n_power_iters,
+        cfg=config.cache_key() + _mesh_key(mesh),
+    )
 
 
 def _check_stream_solver(model) -> None:
@@ -839,15 +797,11 @@ def _stream_gram_precision(model) -> str:
     chunk, :func:`_resolve_stream_precision`).
 
     ``RandomizedPca(gram_precision=...)``: unlike the in-core Gram
-    *range finder* (whose bf16 default is quadratically absorbed by the
-    exact-data recovery), the streamed solve reads σ off G's l×l
-    algebra, so Gram error lands in σ at first order — which is why the
-    f32 ``"auto"`` resolves to ``"high"`` (3-pass bf16; measured
-    2.7e-6 relative σ on the adversarial κ≈1e3 mean-dominated spectrum,
-    benchmarks/GRAM_GRADE.json) rather than the in-core default's
-    single bf16 pass (9.8e-6 there — at the edge of the 1e-5 f32
-    parity band, opt-in only; on the benign flat spectrum both measure
-    ≲7e-6, benchmarks/NORTH_STAR.json).  Every grade is protected by
+    *range finder* (whose one-pass default is quadratically absorbed by
+    the exact-data recovery), the streamed solve reads σ off G's l×l
+    algebra, so Gram error lands in σ at first order — which is why
+    ``"auto"`` resolves to ``"highest"`` (see
+    :func:`_resolve_stream_precision`).  Every grade is protected by
     the mean-nonstationarity guard (:func:`_check_shift_ratio`).
     Models without the knob (``Pca`` — σ² read straight off G) always
     accumulate at ``"highest"``.
@@ -1211,11 +1165,9 @@ def stream_fit_fast_ica(model, data, *, block_rows: int | None = None):
         _install_stats(model, m, t0, FitStats)
         return model
 
-    ctx, _ = _solve_ctx(m.dtype, mesh)
-    with ctx:
-        kmat, _sigma, off = fi.whitening_from_gram(
-            m.gram.astype(m.dtype), k, max(n, d)
-        )
+    kmat, _sigma, off = fi.whitening_from_gram(
+        m.gram.astype(m.dtype), k, max(n, d)
+    )
     _linalg.check_certificate(off, m.dtype, d, "eigendecomposition")
 
     model._key, subkey = jax.random.split(model._key)
@@ -1290,8 +1242,6 @@ def _ica_mesh_fill_and_iterate(model, factory, block_rows: int, m, k: int,
     from jax.sharding import NamedSharding, PartitionSpec
 
     from ..config import config as _cfg
-    from ..ops.jacobi import warm_kernel_probes
-    from ..ops.pallas.replication import replicated_kernel_mesh
     from ..parallel.mesh import replicated_sharding, row_sharding
 
     n, d = m.n_samples, int(m.gram.shape[0])
@@ -1323,16 +1273,14 @@ def _ica_mesh_fill_and_iterate(model, factory, block_rows: int, m, k: int,
     _fill_pass(factory, block_rows, n, d, m.dtype, fill_chunk,
                pad_tail=True, tail_multiple=mesh.size, put=put_rows)
 
-    warm_kernel_probes(m.dtype)
-    with replicated_kernel_mesh(mesh):
-        w, _, n_iter = fi._ica_par_core(
-            buf, jnp.asarray(model._tol, m.dtype), int(model._max_iter),
-            w_init, ica_kwargs["fun"],
-            n_valid=n if n != n_pad else None,
-            decorrelation=ica_kwargs["decorrelation"],
-            precision=ica_kwargs["precision"],
-            cfg=_cfg.cache_key() + (mesh,),
-        )
+    w, _, n_iter = fi._ica_par_core(
+        buf, jnp.asarray(model._tol, m.dtype), int(model._max_iter),
+        w_init, ica_kwargs["fun"],
+        n_valid=n if n != n_pad else None,
+        decorrelation=ica_kwargs["decorrelation"],
+        precision=ica_kwargs["precision"],
+        cfg=_cfg.cache_key() + (mesh,),
+    )
     return w, int(n_iter), n_pad
 
 

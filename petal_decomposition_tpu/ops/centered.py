@@ -2,7 +2,7 @@
 
 The reference materializes the centered matrix ``X − 1μᵀ`` before every
 factorization (pca.rs:216-219, 531; ica.rs:178-188) — an extra n×d
-buffer and an extra full HBM pass.  On TPU the mean is a rank-1
+buffer and an extra full HBM pass.  Here the mean is a rank-1
 correction that fuses into each matmul algebraically:
 
     (X − 1μᵀ)·Ω   = X·Ω − 1·(μᵀΩ)
@@ -23,12 +23,14 @@ from __future__ import annotations
 
 import jax.numpy as jnp
 
+from ..config import config
 from .linalg import mdot
 
 __all__ = [
     "centered_matmul",
     "centered_rmatmul",
     "centered_gram",
+    "gram_acc64",
     "centered_sqnorm",
     "centered_sqnorm_guarded",
 ]
@@ -62,9 +64,64 @@ def centered_rmatmul(x, q, means):
     )
 
 
+# Row chunks of the float32 Gram in :func:`gram_acc64`: at most
+# _GRAM_MAX_CHUNKS, none shorter than _GRAM_MIN_CHUNK_ROWS rows, and the
+# f32 partials (chunks × d × d) within _GRAM_MAX_PARTIAL_ELEMENTS.
+_GRAM_MAX_CHUNKS = 64
+_GRAM_MIN_CHUNK_ROWS = 4096
+_GRAM_MAX_PARTIAL_ELEMENTS = 1 << 26
+
+
+def gram_chunks(n: int, d: int) -> int:
+    """How many equal row chunks :func:`gram_acc64` splits ``n`` rows
+    of width ``d`` into: the largest divisor of ``n`` within the caps,
+    preferring multiples of 8 so that a row-sharded input's chunks fall
+    whole on each of up to 8 devices.
+
+    >>> gram_chunks(4_000_000, 1024), gram_chunks(1000, 64)
+    (64, 1)
+    """
+    cap = min(
+        _GRAM_MAX_CHUNKS,
+        n // _GRAM_MIN_CHUNK_ROWS,
+        _GRAM_MAX_PARTIAL_ELEMENTS // max(d * d, 1),
+    )
+    divisors = [c for c in range(1, max(cap, 1) + 1) if n % c == 0]
+    return max([c for c in divisors if c % 8 == 0] or divisors)
+
+
+def gram_acc64(x):
+    """``XᴴX`` accumulated over the rows in float64.
+
+    float32 data: the rows split into :func:`gram_chunks` equal chunks,
+    each chunk's Gram is one f32 GEMM of a batch, and the partials are
+    added in float64 — so the f32 rounding grows with a chunk's rows,
+    not with n.  Returns float64 for float32 input; other dtypes get one
+    GEMM at their own dtype.  The fits that read σ or the whitening
+    straight off the Gram use this: at 4M×1024 on an H100 (80GB HBM3,
+    power limit 700 W) one f32 GEMM read σ₁..₃₂ 1.6e-5 off and the
+    chunked sum 7.2e-7 (``benchmarks/gram_probe.py``).
+
+    >>> import numpy as np, jax.numpy as jnp
+    >>> x = np.random.default_rng(4).normal(size=(8192, 3))
+    >>> g = gram_acc64(jnp.asarray(x, jnp.float32))
+    >>> g.dtype == jnp.float64, bool(np.allclose(g, x.T @ x, rtol=1e-5))
+    (True, True)
+    """
+    if x.dtype != jnp.float32:
+        return mdot(x.conj().T, x)
+    n, d = x.shape
+    c = gram_chunks(n, d)
+    xs = x.reshape(c, n // c, d)
+    parts = jnp.einsum("cbi,cbj->cij", xs, xs,
+                       precision=config.matmul_precision)
+    return jnp.sum(parts.astype(jnp.float64), axis=0)
+
+
 def centered_gram(x, means, n: int):
     """``(X − 1μᵀ)ᵀ(X − 1μᵀ) = XᵀX − n·μμᵀ`` (padded rows of X are zero
-    and contribute nothing to either term).
+    and contribute nothing to either term), at the data dtype; float32
+    data accumulate and center in float64 (:func:`gram_acc64`).
 
     >>> import numpy as np, jax.numpy as jnp
     >>> x = jnp.asarray(np.random.default_rng(2).normal(size=(8, 3)))
@@ -73,6 +130,9 @@ def centered_gram(x, means, n: int):
     >>> bool(np.allclose(centered_gram(x, mu, 8), xc.T @ xc))
     True
     """
+    if x.dtype == jnp.float32:
+        m = means.astype(jnp.float64)
+        return (gram_acc64(x) - n * jnp.outer(m, m)).astype(x.dtype)
     return mdot(x.conj().T, x) - n * jnp.outer(jnp.conj(means), means)
 
 

@@ -1,28 +1,26 @@
 """Gram-side randomized-SVD recovery: shared d-space algebra.
 
-Both the single-pass streamed fits (``models/streaming.py``) and the
-in-core Gram range finder (``parallel/distributed.py``) reduce the data
-to the d×d Gram ``Gc = XcᵀXc`` and then need randomized-SVD factors
-back out of it.  This module holds that pure algebra so the two
-callers share one implementation:
+The single-pass streamed fits (``models/streaming.py``) reduce the
+data to the d×d Gram ``Gc = XcᵀXc`` and then need randomized-SVD
+factors back out of it; the in-core Gram range finder
+(``parallel/distributed.py``) shares the subspace iteration.  This
+module holds that pure algebra:
 
 - :func:`gram_subspace` — the power/subspace iteration ``qr((Gc)^q·Ω)``
   (the Gram-side form of the reference's power iteration,
   pca.rs:708-715, carrying the same σ^(2q+1) spectral filter).
 - :func:`randomized_gram_recovery` — the in-core finder's exact
   recovery (B = QᵀXc, pca.rs:681-684) reconstructed from Gc's l×l
-  algebra with ZERO passes over the data; σ come out UNSQUARED (see
-  the derivation in the docstring), so the recovery keeps thin-SVD
-  semantics rather than the κ²-sensitive ``sqrt(eig(Gc))``.
+  algebra with ZERO passes over the data (the streamed fit cannot
+  afford one); σ come out UNSQUARED (see the derivation in the
+  docstring), so the recovery keeps thin-SVD semantics rather than the
+  κ²-sensitive ``sqrt(eig(Gc))``.
 - :func:`flip_components` — the U-free deterministic sign convention
   (largest-|·| entry of each component made non-negative; first
   occurrence wins ties, mirroring pca.rs:815-850's strict ``>`` scan).
 
-The in-core caller additionally recovers the thin U with one fused
-centered matmul (``U = Xc·Vᵀᵀ·Σ⁻¹``) and re-flips with the
-reference-exact U-based ``svd_flip``; the streamed caller cannot
-afford that pass and keeps :func:`flip_components` (documented
-deviation, models/streaming.py module docstring).
+The streamed caller has no U and keeps :func:`flip_components`
+(documented deviation, models/streaming.py module docstring).
 """
 
 from __future__ import annotations

@@ -1,18 +1,16 @@
-"""Jacobi SVD and Hermitian eigensolver — the TPU-native factorization core.
+"""Jacobi SVD and Hermitian eigensolver — the in-house factorization core.
 
 These replace the reference's LAPACK ``?gesvd``/``?gesdd`` (ref:
 linalg.rs:70-122 via lapack.rs:103-132, 70-101) and ``?syev``/``?heev``
 (ref: linalg.rs:39-60 via lapack.rs:134-184).
 
-Why Jacobi and not XLA's built-in ``jnp.linalg.svd``/``eigh``: on TPU the
-built-in lowerings produce singular/eigen-*vectors* with only ~1e-7
-accuracy even in float64 (f32-grade internals in the QDWH path), which
-cannot meet the 1e-10 f64 parity target.  One-sided Jacobi converges to
-full working precision and maps to the hardware well: every update is a
-dense matmul against a (mostly-identity) rotation matrix, so the MXU does
-all the work, and the pair schedule is a static round-robin tournament so
-the whole solve is a fixed-shape ``lax.while_loop(lax.scan(...))`` —
-fully jittable, no dynamic shapes.
+One-sided Jacobi converges to full working precision in every dtype,
+complex included, and is written as dense matmuls against a (mostly
+identity) rotation matrix.  The pair schedule is a static round-robin
+tournament, so the whole solve is a fixed-shape
+``lax.while_loop(lax.scan(...))`` — fully jittable, no dynamic shapes.
+Real f32/f64 inputs off the CPU take the QDWH-SVD route instead
+(:func:`svd_route`).
 
 Parallel ordering: the classic chess-tournament (circle method) schedule
 runs n/2 disjoint rotations per step and n-1 steps per sweep, touching
@@ -20,7 +18,8 @@ every column pair exactly once per sweep.
 
 Two update modes:
   * ``"matmul"``  — build the n×n plane-rotation aggregate J for the step
-    and compute ``A @ J`` / ``V @ J``; O(m·n²) per step but MXU-dense.
+    and compute ``A @ J`` / ``V @ J``; O(m·n²) per step but one dense
+    product.
   * ``"scatter"`` — gather the paired columns, rotate, scatter back;
     O(m·n) per step, better asymptotics for wide matrices.
 """
@@ -36,7 +35,7 @@ import jax.numpy as jnp
 
 from ..config import config
 
-__all__ = ["jacobi_svd", "jacobi_eigh", "round_robin_pairings"]
+__all__ = ["jacobi_svd", "jacobi_eigh", "round_robin_pairings", "svd_route"]
 
 
 @functools.lru_cache(maxsize=None)
@@ -192,89 +191,38 @@ def _jacobi_svd_core(a, *, compute_v: bool, max_sweeps: int, update: str):
     return a, v, off, sweeps
 
 
-def _vmem_kernel_ok(a, m: int, n: int) -> bool:
-    """Use the single-invocation VMEM Pallas kernel?  (f32 on TPU, shape
-    within VMEM budget, compile probe passed.)  Under tracing, only a
-    previously-run eager probe counts — the probe itself compiles."""
-    import jax.core
+def svd_route(dtype, m: int, n: int) -> str:
+    """Which branch :func:`jacobi_svd` takes for an ``m×n`` input
+    (``m ≥ n`` after its internal transpose) on the current placement:
 
-    from .pallas import jacobi_kernels as jk
-
+    * ``"qdwh"`` — real f32/f64 off the CPU: QDWH-SVD (Nakatsukasa–
+      Higham 2013: polar decomposition by QDWH iteration, then eigh of
+      the Hermitian factor).  About five iterations of QR/Cholesky plus
+      matmuls, backward stable (no Gram κ² squaring), and pure XLA ops,
+      so it also partitions under mesh traces.  f32 takes XLA's eigh of
+      the Hermitian factor (its ~1e-7 vector accuracy is the f32 noise
+      floor); f64 refines an f32 eigh to f64 with the matmul-only
+      Ogita–Aishima iteration (``ops/refine.py``).
+    * ``"qr+jacobi"`` — large tall inputs elsewhere (complex, or CPU
+      under ``linalg_backend="jacobi"``): Householder QR first, so the
+      rotation loop works on the n×n R; each of the ~n·sweeps
+      sequential steps shrinks from O(m·n) to O(n²) (LAPACK's gesvj
+      preconditions the same way).
+    * ``"jacobi"`` — the one-sided rotation loop on the input itself;
+      small matrices are dispatch-bound, not size-bound.
+    """
     from .linalg import effective_platform
 
-    if effective_platform() != "tpu":
-        return False
-    if not jk.supports(m, n, a.dtype):
-        return False
-    if isinstance(a, jax.core.Tracer):
-        return jk.probed() is True
-    return jk.kernel_available()
-
-
-def _vmem_f64_kernel_ok(a, m: int, n: int) -> bool:
-    """Use the df64 VMEM kernel?  (f64 on TPU, VMEM budget for the f32
-    pairs, compile probe passed.)"""
-    import jax.core
-
-    from .pallas import jacobi_f64_kernel as jk64
-
-    from .linalg import effective_platform
-
-    if effective_platform() != "tpu":
-        return False
-    if not jk64.supports(m, n, a.dtype):
-        return False
-    if isinstance(a, jax.core.Tracer):
-        return jk64.probed() is True
-    return jk64.kernel_available()
-
-
-def warm_kernel_probes(dtype) -> None:
-    """Run the one-time Pallas compile probes eagerly so subsequently
-    traced (jitted) pipelines can dispatch the VMEM kernels — under
-    tracing only an already-run probe counts."""
-    from .linalg import effective_platform
-
-    if effective_platform() != "tpu":
-        return
     dtype = jnp.dtype(dtype)
-    if dtype == jnp.float32:
-        from .pallas import jacobi_kernels
-
-        jacobi_kernels.kernel_available()
-    elif dtype == jnp.float64:
-        from .pallas import jacobi_f64_kernel
-
-        jacobi_f64_kernel.kernel_available()
-
-
-def _qdwh_svd_ok(a, m: int, n: int) -> bool:
-    """Use the QDWH-SVD route?  Real f32 or f64 on an accelerator,
-    beyond the VMEM kernels' reach.  QDWH-SVD (Nakatsukasa–Higham 2013:
-    polar decomposition by QDWH iteration, then eigh of the Hermitian
-    factor) is the MXU-native direct SVD: ~5 iterations of
-    QR/Cholesky+matmul, backward stable — no Gram κ² squaring — and
-    every FLOP a dense MXU op.  Preferred over a block-Jacobi tiling
-    here because this stack's per-dispatch cost makes hundreds of
-    sequential panel solves (each QR + kernel + two matmuls) ~25×
-    slower than QDWH's ~20 fused XLA ops.
-
-    f32 uses XLA's eigh of the Hermitian factor directly (its ~1e-7
-    vector accuracy sits at the dtype noise floor).  f64 runs the whole
-    polar iteration in f64 (QR/Cholesky are fully accurate on TPU) and
-    replaces the eigh — whose built-in f64 lowering carries f32-grade
-    internals — with an f32 MXU eigh *refined to f64* by the
-    matmul-only Ogita–Aishima iteration (``ops/refine.py``); without
-    this, f64 beyond the df64 VMEM kernel (n ≳ 630) fell to the
-    dispatch/emulation-bound XLA rotation loop (hours at n = 4096).
-    (Pure XLA ops — partitions fine under mesh traces too.)"""
-    from .linalg import effective_platform
-
-    if a.dtype not in (jnp.float32, jnp.float64):
-        return False
-    if effective_platform() == "cpu":
-        return False  # LAPACK gesvd serves every width on host
-    return n >= 2
+    if (
+        dtype in (jnp.float32, jnp.float64)
+        and effective_platform() != "cpu"
+        and n >= 2
+    ):
+        return "qdwh"
+    if m >= 3 * n and m * n >= (1 << 20):
+        return "qr+jacobi"
+    return "jacobi"
 
 
 def _qdwh_svd(a, m: int, n: int):
@@ -332,8 +280,8 @@ def jacobi_svd(a, *, compute_v: bool = True, max_sweeps: int | None = None,
     if max_sweeps is None:
         max_sweeps = config.jacobi_max_sweeps
     if update is None:
-        # matmul form keeps the MXU busy for narrow panels; scatter wins
-        # asymptotically for wide ones.
+        # matmul form is one dense product per step for narrow panels;
+        # scatter wins asymptotically for wide ones.
         update = "matmul" if min(m, n) <= 512 else "scatter"
 
     transposed = m < n
@@ -341,54 +289,11 @@ def jacobi_svd(a, *, compute_v: bool = True, max_sweeps: int | None = None,
         a = a.conj().T
         m, n = n, m
 
-    if _vmem_kernel_ok(a, m, n):
-        from .pallas import jacobi_kernels
-
-        a_rot, v, off = jacobi_kernels.jacobi_svd_vmem(
-            a, max_sweeps=max_sweeps
-        )
-        sweeps = jnp.asarray(-1, jnp.int32)  # not tracked in-kernel
-    elif _vmem_f64_kernel_ok(a, m, n):
-        from .pallas import jacobi_f64_kernel
-
-        a_rot, v, off = jacobi_f64_kernel.jacobi_svd_vmem_f64(
-            a, max_sweeps=max_sweeps
-        )
-        sweeps = jnp.asarray(-1, jnp.int32)
-    elif _vmem_f64_kernel_ok(a, n + (n % 2), n) and m >= 3 * n:
-        # Tall f64: Householder QR (XLA, backward-stable) + df64 VMEM
-        # Jacobi on the n×n R factor.
-        from .pallas import jacobi_f64_kernel
-
-        q_f, r_f = jnp.linalg.qr(a, mode="reduced")
-        r_rot, v, off = jacobi_f64_kernel.jacobi_svd_vmem_f64(
-            r_f, max_sweeps=max_sweeps
-        )
-        a_rot = jnp.dot(q_f, r_rot, precision=config.matmul_precision)
-        sweeps = jnp.asarray(-1, jnp.int32)
-    elif _vmem_kernel_ok(a, n + (n % 2), n) and not jnp.iscomplexobj(a):
-        # Tall matrix whose n×n R factor fits the kernel:
-        # QR-precondition (backward-stable Householder, one XLA call),
-        # VMEM Jacobi on R, then map the rotated columns back through Q.
-        from .pallas import jacobi_kernels
-
-        q_f, r_f = jnp.linalg.qr(a, mode="reduced")
-        r_rot, v, off = jacobi_kernels.jacobi_svd_vmem(
-            r_f, max_sweeps=max_sweeps
-        )
-        a_rot = jnp.dot(q_f, r_rot, precision=config.matmul_precision)
-        sweeps = jnp.asarray(-1, jnp.int32)
-    elif _qdwh_svd_ok(a, m, n):
-        # Wide/large f32 beyond the VMEM kernels: MXU-native QDWH-SVD.
+    route = svd_route(a.dtype, m, n)
+    if route == "qdwh":
         a_rot, v, off = _qdwh_svd(a, m, n)
-        sweeps = jnp.asarray(-1, jnp.int32)
-    elif m >= 3 * n and m * n >= (1 << 20):
-        # Large tall matrix, no kernel available (f64/complex/CPU):
-        # still QR-precondition so the rotation loop works on the n×n
-        # R — each of the ~n·sweeps sequential steps shrinks from
-        # O(m·n) to O(n²) (LAPACK's gesvj applies the same
-        # preconditioning).  Small matrices skip this: their step cost
-        # is dispatch-dominated, not size-dominated.
+        sweeps = jnp.asarray(-1, jnp.int32)  # not a sweep count
+    elif route == "qr+jacobi":
         q_f, r_f = jnp.linalg.qr(a, mode="reduced")
         r_rot, v, off, sweeps = _jacobi_svd_core(
             r_f, compute_v=True, max_sweeps=max_sweeps, update=update

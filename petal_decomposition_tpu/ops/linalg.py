@@ -1,13 +1,13 @@
-"""Linalg abstraction layer — the TPU analogue of the reference's L2.
+"""Linalg abstraction layer — the analogue of the reference's L2.
 
 The reference wraps raw LAPACK behind safe functions ``eigh`` / ``svd`` /
 ``svddc`` / ``qr`` (ref: src/linalg.rs:39-147).  Here the same surface
 dispatches between two interchangeable implementations:
 
-* the in-house Jacobi solvers (:mod:`.jacobi`) — full working-precision
-  accuracy on TPU, required for the f64 1e-10 parity band;
-* XLA's built-in lowerings — MXU-optimized, used for f32 where their
-  ~1e-7 vector accuracy sits at the dtype noise floor anyway.
+* the in-house solvers (:mod:`.jacobi`, :mod:`.refine`) — Jacobi
+  rotations at full working precision (the f64 1e-10 parity band) and
+  QDWH-SVD for real dtypes off the CPU (:func:`.jacobi.svd_route`);
+* XLA's built-in lowerings — LAPACK on the CPU, cuSOLVER on the GPU.
 
 Semantic notes vs the reference:
 
@@ -16,14 +16,14 @@ Semantic notes vs the reference:
   the first min(m,n) columns (``transform_with_u`` slices ``[:, :k]``,
   pca.rs:772; ``svd_flip`` pairs U columns with Vᵀ rows, stopping at
   min(m,n), pca.rs:819) — thin U preserves all user-visible outputs and
-  is the only scalable choice on TPU.
+  is the only scalable choice on an accelerator.
 * ``qr`` matches reference semantics (economy Q, linalg.rs:127-147) but
   not its LQ-of-transpose sign convention; Q is used strictly as an
   orthonormal range basis so any column-sign/rotation difference cancels
   in ``QᵀX`` / ``Q·U_B``.
 * ``lu_pl`` reproduces the ``lair`` LU → P·L normalization used between
-  the Halko power iterations (ref: pca.rs:709-713) as a pure-JAX blocked
-  partial-pivot elimination (XLA's own LU is f32-only on TPU).
+  the Halko power iterations (ref: pca.rs:709-713) as a pure-JAX
+  partial-pivot elimination.
 """
 
 from __future__ import annotations
@@ -36,7 +36,7 @@ import numpy as np
 
 from ..config import config
 from ..errors import LinalgError
-from .jacobi import jacobi_eigh, jacobi_svd
+from .jacobi import jacobi_eigh, jacobi_svd, svd_route
 
 __all__ = [
     "svd",
@@ -52,7 +52,8 @@ __all__ = [
 
 def mdot(a, b):
     """Matmul at the configured precision (default ``highest``: keeps f32
-    matmuls in true f32 — TPU's default bf16 path loses ~3 digits).
+    matmuls in true f32 — a GPU's default f32 dot runs in TF32, which
+    keeps about three decimal digits).
 
     >>> import numpy as np
     >>> from petal_decomposition_tpu.ops.linalg import mdot
@@ -95,11 +96,20 @@ def _use_jacobi(dtype) -> bool:
         return effective_platform() != "cpu"
     if _is_high_precision_dtype(dtype):
         return True  # f64: in-house routes meet the 1e-10 parity band
-    # f32/c64 SVD: XLA's TPU lowering is unusable in this stack (the
-    # compile helper SIGABRTs on f32 gesvd-equivalents), so every
-    # non-CPU placement routes through Jacobi.  CPU — including the
+    # f32/c64 SVD off the CPU goes through jacobi_svd (QDWH-SVD for
+    # f32 — jacobi.svd_route); whether cuSOLVER's gesvd would serve
+    # better on the GPU is unmeasured.  CPU — including the
     # complex→host redirect — keeps LAPACK.
     return effective_platform() != "cpu"
+
+
+def svd_branch(dtype, m: int, n: int) -> str:
+    """Which branch :func:`svd` and :func:`svd_jit_cert` take for an
+    ``m×n`` input on the current placement: ``"xla"``
+    (``jnp.linalg.svd``) or one of :func:`.jacobi.svd_route`'s."""
+    if not _use_jacobi(dtype):
+        return "xla"
+    return svd_route(dtype, max(m, n), min(m, n))
 
 
 def _check_converged(off, tol: float, what: str) -> None:
@@ -113,8 +123,9 @@ def _check_converged(off, tol: float, what: str) -> None:
 def convergence_tol(dtype, dim: int) -> float:
     """Host-side tolerance for a Jacobi off-diagonal certificate.
 
-    ``max(...)`` accommodates the df64 kernel's ~2^-48 working precision
-    on the f64 path; unchanged for f32.
+    The 2^-45 floor (f64 only; f32's own bound is larger) dates from an
+    emulated-f64 route and is kept so that f64 certificates pass or
+    fail exactly as before.
     """
     return max(float(jnp.finfo(dtype).eps) * 4, 2.0 ** -45) * (dim ** 0.5)
 
@@ -126,43 +137,58 @@ def check_certificate(off, dtype, dim: int, what: str) -> None:
     _check_converged(off, convergence_tol(dtype, dim), what)
 
 
+def eigh_route(dtype, n: int) -> str:
+    """Which branch :func:`eigh_jit_cert` takes for an ``n×n`` input on
+    the current placement:
+
+    * ``"refined"`` — f64 with n > 384 off the CPU: f32 eigh refined to
+      f64 by the matmul-only Ogita–Aishima iteration
+      (``ops/refine.py``), ~1e-13 relative residuals; the XLA rotation
+      loop is n·sweeps sequential matmuls and impractical at that size.
+    * ``"jacobi"`` — two-sided Jacobi in XLA (f64 up to n = 384, c128
+      off the CPU, or ``linalg_backend="jacobi"``): exact, but
+      launch-bound.
+    * ``"xla"`` — ``jnp.linalg.eigh`` (LAPACK on the CPU, cuSOLVER on
+      the GPU).
+
+    The 384 bound is inherited and not yet measured on the GPU.
+    """
+    dtype = jnp.dtype(dtype)
+    backend = config.linalg_backend
+    if (
+        backend == "auto"
+        and dtype == jnp.float64
+        and n > 384
+        and effective_platform() != "cpu"
+    ):
+        return "refined"
+    if backend != "xla" and (
+        backend == "jacobi"
+        or dtype == jnp.float64
+        # c128 on an actual CPU placement (the complex→host redirect)
+        # takes LAPACK — the reference's own backend.
+        or (dtype == jnp.complex128 and effective_platform() != "cpu")
+    ):
+        return "jacobi"
+    return "xla"
+
+
 def eigh_jit_cert(a):
     """Backend-dispatched eigh safe to call under ``jit``; returns
     ``(w, v, off)`` where ``off`` is the convergence certificate (final
     relative off-diagonal; 0 for direct backends).  Dispatch is by
-    dtype, a trace-time constant.  Used inside fully-jitted pipelines
-    (ICA iteration, distributed fits), whose callers check the
-    certificate host-side afterwards (:func:`check_certificate`)."""
-    if (
-        config.linalg_backend == "auto"
-        and a.dtype == jnp.float64
-        and a.shape[0] > 384
-        and effective_platform() != "cpu"
-    ):
-        # Large f64 on an accelerator: neither the df64 VMEM kernel
-        # (square support tops out near n ≈ 404 under the 10 MB
-        # working-set bound) nor the XLA-formulated rotation loop
-        # (n·sweeps sequential emulated-f64 matmuls — ~45 min at
-        # n=1024) is practical.  f32 MXU eigh + matmul-only f64
-        # Ogita–Aishima refinement reaches ~1e-13 relative residuals
-        # in seconds (ops/refine.py).  The 384 threshold sits just
-        # inside the kernel's square envelope so no size falls in a
-        # gap between the two routes.
+    dtype and size (:func:`eigh_route`), both trace-time constants.
+    Used inside fully-jitted pipelines (ICA iteration, distributed
+    fits), whose callers check the certificate host-side afterwards
+    (:func:`check_certificate`)."""
+    route = eigh_route(a.dtype, a.shape[0])
+    if route == "refined":
         from .refine import refined_eigh
 
         w, v, off_r = refined_eigh(a)
         off = jnp.where(off_r < 1e-8, 0.0, jnp.inf).astype(a.dtype)
         return w, v, off
-    if config.linalg_backend != "xla" and (
-        config.linalg_backend == "jacobi"
-        or a.dtype == jnp.float64
-        or (
-            a.dtype == jnp.complex128
-            and effective_platform() != "cpu"
-        )
-    ):
-        # c128 on an actual CPU placement (the complex→host redirect)
-        # falls through to LAPACK below — the reference's own backend.
+    if route == "jacobi":
         w, v, off, _ = jacobi_eigh(a)
         return w, v, off
     w, v = jnp.linalg.eigh(a)
@@ -178,42 +204,9 @@ def eigh_jit(a):
 def eigh_psd_jit_cert(a):
     """Eigendecomposition of a *positive-semidefinite* symmetric matrix,
     jit-safe, ascending eigenvalues; returns ``(w, v, off)`` with the
-    convergence certificate.
-
-    Every internal eigh in this library (W·Wᵀ decorrelation, Gram
-    whitening, covariance PCA) is PSD, so a one-sided-Jacobi route
-    (σ = λ, right vectors = eigenvectors) is always valid here.
-
-    f32: XLA's built-in eigh (QDWH, MXU-dense) measured faster than the
-    VMEM kernel at k ≤ 512 (13.1 vs 27.3 ms at k=512) — delegate.
-    f64 on TPU: there is no fast built-in (the XLA Jacobi formulation is
-    dispatch-bound), so the df64 VMEM kernel applied to the symmetric
-    matrix itself wins by ~10×.
-    """
-    if (
-        config.linalg_backend in ("auto", "jacobi")
-        and a.dtype == jnp.float64
-        and effective_platform() == "tpu"
-    ):
-        from .pallas import jacobi_f64_kernel as jk64
-
-        n = a.shape[0]
-        tracing = isinstance(a, jax.core.Tracer)
-        ok = jk64.probed() is True if tracing else jk64.kernel_available()
-        if ok and jk64.supports(n, n, a.dtype):
-            # Same one-triangle semantics as _jacobi_eigh_core: XLA
-            # grams are not bitwise symmetric and the asymmetry scales
-            # with the mean-domination ratio; the one-sided kernel has
-            # no stall mode but symmetrizing halves the perturbation.
-            a = (a + a.conj().T) / 2
-            a_rot, v, off = jk64.jacobi_svd_vmem_f64(a)
-            lam = jnp.sqrt(jnp.sum(a_rot * a_rot, axis=0))
-            order = jnp.argsort(lam)  # ascending, LAPACK convention
-            return (
-                jnp.take(lam, order),
-                jnp.take(v, order, axis=1),
-                off.astype(jnp.float64),
-            )
+    convergence certificate.  Every internal eigh in this library
+    (W·Wᵀ decorrelation, Gram whitening, covariance PCA) is PSD; all
+    of them dispatch as :func:`eigh_jit_cert` does."""
     return eigh_jit_cert(a)
 
 
@@ -394,9 +387,9 @@ def qr(a):
 
 
 def cholesky_qr2(a):
-    """Tall-skinny orthonormalization via CholeskyQR2 — the TPU-native QR.
+    """Tall-skinny orthonormalization via CholeskyQR2 — the matmul-only QR.
 
-    Two rounds of ``Q = A·chol(AᵀA)⁻ᵀ``; all FLOPs are MXU matmuls and the
+    Two rounds of ``Q = A·chol(AᵀA)⁻ᵀ``; all FLOPs are dense matmuls and the
     only cross-row dependence is the k×k Gram matrix, which becomes a
     single ``psum`` under row sharding.  Orthonormal to working precision
     for cond(A) ≲ 1/√eps, which holds for every use here (the inputs are
@@ -415,19 +408,17 @@ def cholesky_qr2(a):
         g = mdot(x.conj().T, x)
         eye = jnp.eye(g.shape[0], dtype=g.dtype)
         # Tiny diagonal lift guards exactly rank-deficient panels.  The
-        # floor is applied to the LIFT (not just the scale): on TPU,
-        # f64 is emulated as float32 pairs, so a lift below ~1e-38
-        # (e.g. eps·1e-30 for an all-zero panel) silently underflows to
-        # exactly 0 → cholesky(0) → 1/0 → NaN (found by a TPU shape
-        # sweep on a 1-sample fit whose centered panel is exactly 0).
+        # floor is applied to the LIFT (not just the scale): for an
+        # all-zero panel (a 1-sample fit's centered panel) eps·scale is
+        # 0, and cholesky(0) → 1/0 → NaN.  1e-30 also stays above the
+        # f32 exponent range's underflow.
         scale = jnp.real(jnp.trace(g)) / g.shape[0]
         lift = jnp.maximum(jnp.finfo(g.dtype).eps * scale, 1e-30)
         low = jnp.linalg.cholesky(g + lift * eye)  # G = L·Lᴴ
         # Escalating shift (shifted CholeskyQR, Fukaya et al.): the
         # computed Gram of a rank-deficient panel carries matmul error
-        # far beyond eps-level — on TPU the emulated-f64 dot's ~m·2⁻⁴⁸
-        # worst case (measured: a rank-3 20000×6 panel's Gram had a
-        # −4.5e-4 eigenvalue against λmax 1.5e6) — which makes G+lift
+        # far beyond eps-level (a rank-3 20000×6 panel's Gram has shown
+        # a −4.5e-4 eigenvalue against λmax 1.5e6), which makes G+lift
         # indefinite and XLA's Cholesky emits NaNs.  Retry once with a
         # √u·trace shift that dominates any such error; it zeroes the
         # (unresolvable anyway) null directions, matching LAPACK QR's
@@ -441,9 +432,8 @@ def cholesky_qr2(a):
         )
         bad = jnp.any(jnp.isnan(low))
         low = jnp.where(bad, jnp.linalg.cholesky(g + big * eye), low)
-        # Q = X·L⁻ᴴ via a k×k triangular inverse + one MXU matmul: a
-        # triangular solve against n right-hand sides is sequential on
-        # TPU (measured 57-65 ms for 100k×42 vs ~20 ms this way), and
+        # Q = X·L⁻ᴴ via a k×k triangular inverse + one dense matmul
+        # instead of a triangular solve against n right-hand sides;
         # L⁻¹'s rounding is absorbed by the second round.
         linv = jax.scipy.linalg.solve_triangular(
             low, eye, lower=True

@@ -1,11 +1,10 @@
 """Mixed-precision symmetric-eigendecomposition refinement.
 
-For f64 symmetric matrices beyond the df64 VMEM kernel's reach
-(n ≳ 630), no single-kernel f64 solve is practical on TPU: XLA's
-built-in f64 eigh carries f32-grade internals (~1e-7 vectors) and the
-XLA-formulated Jacobi loop is dispatch/emulation-bound (minutes at
-n ≥ 1024).  Instead, compute a fast float32 eigendecomposition on the
-MXU and *refine* it to float64 working accuracy with a few Newton-type
+For large f64 symmetric matrices (n > 384 off the CPU,
+``ops.linalg.eigh_route``), the XLA-formulated Jacobi loop is
+launch-bound (n·sweeps sequential matmuls).  Instead, compute a fast
+float32 eigendecomposition and *refine* it to float64 working accuracy
+with a few Newton-type
 steps built entirely from d×d matmuls (Ogita & Aishima, "Iterative
 refinement for symmetric eigenvalue decomposition", Japan J. Indust.
 Appl. Math. 2018 — a public algorithm, reimplemented here from the
@@ -27,7 +26,7 @@ orthonormality correction R/2 — their eigenvectors mix within the
 (near-)degenerate subspace, exactly as LAPACK's ``?syev`` is free to
 do (ref: linalg.rs:57's contract is any orthonormal eigenbasis).
 
-This is the TPU replacement for the reference's ``?syev``/``?heev``
+This is the off-CPU replacement for the reference's ``?syev``/``?heev``
 at large n (ref: src/linalg/lapack.rs:134-184): 3 f64 gemms + 1 update
 gemm per step, quadratic convergence from an f32 start (2 steps reach
 ~n·eps64 residuals).
@@ -121,8 +120,7 @@ def eigh_refine(a, lam0, v0, steps: int = 3):
     lam = jnp.asarray(lam0, a.dtype)
     lam_max_guard = jnp.maximum(jnp.max(jnp.abs(lam)), jnp.finfo(a.dtype).tiny)
     # fori_loop so XLA compiles ONE step body per matrix size instead
-    # of `steps` copies — the emulated-f64 gemm expansion makes each
-    # body expensive to compile (minutes for n ≳ 1024 graphs).
+    # of `steps` copies.
     v, lam, _ = jax.lax.fori_loop(
         0,
         max(1, steps),
@@ -140,9 +138,9 @@ def eigh_refine(a, lam0, v0, steps: int = 3):
 
 @partial(jax.jit, static_argnames=("steps", "levels"))
 def refined_eigh(a, steps: int = 3, levels: int = 2):
-    """f32 MXU eigendecomposition + f64 refinement, jit-safe.
+    """f32 eigendecomposition + f64 refinement, jit-safe.
 
-    The f32 solve (XLA's QDWH eigh — MXU-dense) resolves gaps down to
+    The f32 solve (XLA's eigh) resolves gaps down to
     ~eps32·λmax; the Ogita–Aishima steps then square the error for
     every resolved pair.  Eigenpairs whose |λ| sits orders of magnitude
     below λmax can be *fully mixed* by the f32 start (their gaps are

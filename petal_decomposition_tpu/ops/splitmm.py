@@ -1,42 +1,31 @@
-"""Hi/lo-split f32 MXU matmuls for float64 operands ("ds64").
+"""Hi/lo-split f32 matmuls for float64 operands ("ds64").
 
-TPUs have no native f64 matmul: XLA emulates one at ~8× the cost of
-an f32 MXU pass (measured 12.4–12.65 ms per k×n gemm at 64×100k on
-v5e vs 2.9–3.1 ms split).  When full f64 accuracy is *not* required —
-e.g. the middle stage of the FastICA mixed-precision polish
-(`models/fast_ica._ica_par_core`), which only needs to carry the
-iterate below ~1e-6 before the true-f64 certification stage takes
-over — each f64 operand can be split into a (hi, lo) pair of f32
-arrays with ``x == hi + lo`` to ~2⁻⁴⁸ relative, and the product formed
-from f32 MXU passes:
+When full f64 accuracy is *not* required — e.g. the middle stage of the
+FastICA mixed-precision polish (`models/fast_ica._ica_par_core`), which
+only needs to carry the iterate below ~1e-6 before the true-f64
+certification stage takes over — each f64 operand can be split into a
+(hi, lo) pair of f32 arrays with ``x == hi + lo`` to ~2⁻⁴⁸ relative,
+and the product formed from three f32 passes:
 
     A·B ≈ Ah·Bh + Ah·Bl + Al·Bh        (Al·Bl ~ 2⁻⁴⁸, dropped)
 
 The dominant error is then the f32 *accumulation* of the Ah·Bh pass
-along the contraction axis.  Two regimes, both measured on v5e at the
-FastICA polish shape (k=64, n=100 000, standard-normal data; see
-``benchmarks/DS64_STAGE.json``):
+along the contraction axis.  Two regimes, at the FastICA polish shape
+(k=64, n=100 000, standard-normal data):
 
 * short contraction (k-length, e.g. W·X): plain f32 accumulation —
-  normwise error 1.3e-7, 3.55 ms vs 13.26 ms emulated f64 (3.7×);
+  normwise error ~1.3e-7;
 * long contraction (n-length, e.g. G·Xᵀ): chunk the contraction into
   ``chunk``-sized pieces accumulated in f32 and sum the per-chunk
-  partials in f64 — normwise error 8.2e-9 at chunk=512, 3.10 ms vs
-  12.79 ms (4.1×).  Unchunked the same product reads ~1.3e-5.
-  In-loop (dispatch amortized by ``lax.while_loop``) the full ds64
-  FastICA iteration runs 548.9 it/s vs 34.1 it/s emulated f64 — 16×.
+  partials in f64 — normwise error ~8e-9 at chunk=512.  Unchunked the
+  same product reads ~1.3e-5.
 
 "Normwise" = max|Δ| / max|reference| over the product entries; the
 per-entry relative metric is meaningless on the near-zero entries of
-a random product.
-
-This is deliberately *not* the full df64 (double-double) arithmetic of
-``ops/pallas/df64.py``: df64 tracks the lo word through every
-operation (Dekker/Knuth error-free transforms) and reaches ~1e-15
-grade at ~6 f32 passes per product; the split product here drops the
-lo·lo term and the accumulation EFTs for a ~1e-7..1e-9 grade at 3
-passes.  Use df64 when the result must be f64-true; use this when a
-downstream f64 stage certifies the final answer anyway.
+a random product.  The products must run at ``precision="highest"``
+(``ops.linalg.mdot``): a TF32 pass would lose the lo word entirely.
+Whether the three f32 passes beat one native f64 product on a GPU is
+not measured yet (ROADMAP A4).
 """
 from __future__ import annotations
 
@@ -71,7 +60,7 @@ def mm_split_f32(a64, bh, bl):
     """``a64 @ (bh + bl)`` to ~1.5e-7 normwise, returned in float32.
 
     ``a64`` is float64 (split internally); ``(bh, bl)`` a pre-split
-    right operand (`split_f64`).  Three f32 MXU passes with plain f32
+    right operand (`split_f64`).  Three f32 passes with plain f32
     accumulation — suited to short contractions (the FastICA W·X gemm,
     contraction = k) feeding an elementwise contrast whose own f32
     evaluation already floors the accuracy at ~eps_f32.
@@ -89,15 +78,15 @@ def mm_split_chunked_f64(g32, bh, bl, *, chunk: int = 512):
     ``g32``: (k, n) float32 (exact — e.g. an f32-evaluated contrast);
     ``(bh, bl)``: (k2, n) pre-split f64 right operand.  The main
     ``g32·bhᵀ`` pass is chunked along n: each ``chunk``-length slice
-    accumulates in f32 on the MXU and the per-chunk partials sum in
+    accumulates in f32 and the per-chunk partials sum in
     f64, bounding the f32 accumulation length by ``chunk`` instead of
     n.  The lo cross term is ~2⁻²⁴ smaller and accumulates unchunked.
     """
     if g32.dtype != jnp.float32:
         # A float64 left operand would silently promote every pass to
-        # an emulated-f64 gemm — slower than not splitting at all
-        # (measured 20 ms vs 12 ms at 64×100k).  The caller owns the
-        # f32 evaluation of g (e.g. the contrast of an f32 product).
+        # an f64 gemm — slower than not splitting at all.  The caller
+        # owns the f32 evaluation of g (e.g. the contrast of an f32
+        # product).
         raise TypeError(f"g32 must be float32, got {g32.dtype}")
     k, n = g32.shape
     k2 = bh.shape[0]

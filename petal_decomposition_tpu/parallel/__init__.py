@@ -1,4 +1,4 @@
-"""Row-sharded fits over TPU meshes (SURVEY §2.3's distributed design)."""
+"""Row-sharded fits over device meshes (SURVEY §2.3's distributed design)."""
 
 from .distributed import fast_ica_fit, pca_fit_gram, randomized_pca_fit
 from .mesh import (

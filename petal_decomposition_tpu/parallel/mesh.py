@@ -5,9 +5,10 @@ threads, no comm crates, sequential MKL).  Its scaling analogue here is
 the one parallelism axis that applies to decomposition: shard the n×d
 data matrix row-wise (samples) across a 1-D device mesh.  Every
 sample-axis contraction (mean, Gram XᵀX, sketch XᵀΩ, projection QᵀX,
-ICA's G·Xᵀ) then compiles to a local MXU matmul plus one ``psum`` over
-ICI — inserted automatically by GSPMD from the sharding annotations; no
-hand-written collectives.
+ICA's G·Xᵀ) then compiles to a local matmul plus one ``psum`` over the
+interconnect (NCCL on GPUs) — inserted automatically by GSPMD from the
+sharding annotations; no hand-written collectives.  The mesh is 1-D:
+every card reaches every other at the same rate.
 """
 
 from __future__ import annotations

@@ -1,11 +1,11 @@
 """Multi-host initialization helpers.
 
-A mesh can span every chip in a multi-host TPU slice: each host runs the
-same program, calls :func:`initialize` once before any jax use, and
-builds the mesh from ``jax.devices()`` (which then lists the global
-device set).  Collectives ride ICI within the slice and DCN across
-slices — still with no code changes to the fit pipelines, which only see
-sharding annotations.
+A mesh can span the devices of several hosts: each host runs the same
+program, calls :func:`initialize` once before any jax use, and builds
+the mesh from ``jax.devices()`` (which then lists the global device
+set).  Collectives ride the intra-host links within a host and the
+network across hosts — still with no code changes to the fit
+pipelines, which only see sharding annotations.
 
 The reference has no distributed analogue at all (SURVEY §2.3); the
 restart story here is the serialization contract: a fit is one-shot, so

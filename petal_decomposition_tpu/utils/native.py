@@ -6,9 +6,10 @@ library driven through ctypes.  Used when
 ``config.linalg_backend == "native"`` and as a cross-validation oracle
 in tests.
 
-The library is built on demand (``make -C native``); loading is lazy
-and failure-tolerant: :func:`available` reports whether the backend can
-be used.
+The library is built on first use (``make -C native``, re-run on every
+load so a stale build is replaced); loading is lazy and
+failure-tolerant: :func:`available` reports whether the backend can be
+used.
 """
 
 from __future__ import annotations
@@ -46,16 +47,18 @@ def _load():
         return _LIB
     _LOAD_TRIED = True
     so = _native_dir() / "libpetal_native.so"
-    if not so.exists():
-        try:
-            subprocess.run(
-                ["make", "-C", str(_native_dir())],
-                check=True,
-                capture_output=True,
-                timeout=120,
-            )
-        except Exception:
-            return None
+    # ``make`` runs every time: it rebuilds a library that is older than
+    # the committed source or Makefile (one copied from another host,
+    # say) and is a no-op otherwise.
+    try:
+        subprocess.run(
+            ["make", "-C", str(_native_dir())],
+            check=True,
+            capture_output=True,
+            timeout=120,
+        )
+    except (OSError, subprocess.SubprocessError):
+        return None
     if not so.exists():
         return None
     try:

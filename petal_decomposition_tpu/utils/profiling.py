@@ -1,7 +1,7 @@
 """Profiling and per-fit observability.
 
 The reference has no tracing/metrics at all (SURVEY §5: no logging or
-timing anywhere; only the private ``FastIca.n_iter``).  The TPU-native
+timing anywhere; only the private ``FastIca.n_iter``).  The
 equivalents here:
 
 * :func:`trace` — context manager around ``jax.profiler`` emitting a

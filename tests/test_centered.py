@@ -1,6 +1,8 @@
 """Unit tests for the centering-fused contractions (ops/centered.py)."""
 
 import numpy as np
+import pytest
+import jax
 import jax.numpy as jnp
 
 from petal_decomposition_tpu.ops.centered import (
@@ -8,6 +10,8 @@ from petal_decomposition_tpu.ops.centered import (
     centered_matmul,
     centered_rmatmul,
     centered_sqnorm,
+    gram_acc64,
+    gram_chunks,
 )
 
 
@@ -53,6 +57,64 @@ def test_centered_gram_and_sqnorm():
     np.testing.assert_allclose(got, xc.T @ xc, atol=1e-8)
     got_n = float(centered_sqnorm(jnp.asarray(x), jnp.asarray(mu), n))
     np.testing.assert_allclose(got_n, (xc**2).sum(), atol=1e-8)
+
+
+@pytest.mark.parametrize("n,d,chunks", [
+    (4_000_000, 1024, 64),  # the four-card flagship: whole chunks per card
+    (40_000, 64, 8),  # a multiple of 8 beats the larger divisor 5
+    (3 * 4096, 8, 3),  # no multiple of 8 fits: the largest divisor
+    (1 << 20, 4096, 4),  # the f32 partials' element cap
+    (1000, 64, 1),  # under two minimum chunks: one GEMM
+    (65_537, 8, 1),  # a prime row count: one GEMM
+])
+def test_gram_chunks(n, d, chunks):
+    assert gram_chunks(n, d) == chunks
+    assert n % chunks == 0
+
+
+@pytest.mark.parametrize("n", [4096, 40_000, 65_536])
+def test_gram_acc64_matches_f64(n):
+    rng = np.random.default_rng(n)
+    x = (rng.standard_normal((n, 16)) * 3.0 + 1.0).astype(np.float32)
+    g = gram_acc64(jnp.asarray(x))
+    assert g.dtype == jnp.float64
+    x64 = x.astype(np.float64)
+    ref = x64.T @ x64
+    np.testing.assert_allclose(np.asarray(g), ref,
+                               atol=1e-6 * np.abs(ref).max())
+
+
+def test_gram_acc64_other_dtypes_one_gemm():
+    x, *_ = _setup()
+    g = gram_acc64(jnp.asarray(x))
+    assert g.dtype == jnp.float64
+    np.testing.assert_allclose(np.asarray(g), x.T @ x, rtol=1e-12)
+
+
+def test_gram_acc64_sharded_matches_unsharded():
+    from petal_decomposition_tpu.parallel import make_mesh
+    from petal_decomposition_tpu.parallel.mesh import row_sharding
+
+    rng = np.random.default_rng(5)
+    x = (rng.standard_normal((65_536, 16)) + 2.0).astype(np.float32)
+    mesh = make_mesh(8)
+    x_sh = jax.device_put(jnp.asarray(x), row_sharding(mesh))
+    g1 = np.asarray(gram_acc64(jnp.asarray(x)))
+    g8 = np.asarray(jax.jit(gram_acc64)(x_sh))
+    np.testing.assert_allclose(g8, g1, rtol=1e-6)
+
+
+def test_centered_gram_f32_keeps_dtype_and_centers_in_f64():
+    rng = np.random.default_rng(6)
+    x = (rng.standard_normal((40_000, 8)) + 20.0).astype(np.float32)
+    mu = x.astype(np.float64).mean(axis=0)
+    got = centered_gram(jnp.asarray(x), jnp.asarray(mu, jnp.float32),
+                        x.shape[0])
+    assert got.dtype == jnp.float32
+    xc = x.astype(np.float64) - mu
+    ref = xc.T @ xc
+    np.testing.assert_allclose(np.asarray(got, np.float64), ref,
+                               atol=1e-4 * np.abs(ref).max())
 
 
 def test_debugging_helpers():

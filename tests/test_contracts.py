@@ -31,11 +31,11 @@ def test_complex_cpu_mesh_fits_work():
 
 def test_complex_accelerator_mesh_raises():
     with pytest.raises(InvalidInput, match="accelerator mesh"):
-        _check_mesh_complex_platforms({"tpu"}, np.complex64)
+        _check_mesh_complex_platforms({"gpu"}, np.complex64)
     with pytest.raises(InvalidInput, match="accelerator mesh"):
-        _check_mesh_complex_platforms({"cpu", "tpu"}, np.complex128)
+        _check_mesh_complex_platforms({"cpu", "gpu"}, np.complex128)
     # Real dtypes and CPU meshes pass.
-    _check_mesh_complex_platforms({"tpu"}, np.float32)
+    _check_mesh_complex_platforms({"gpu"}, np.float32)
     _check_mesh_complex_platforms({"cpu"}, np.complex128)
 
 
@@ -77,4 +77,13 @@ def test_multihost_explicit_failure_raises():
 
 
 def test_compilation_cache_configured():
-    assert jax.config.jax_compilation_cache_dir  # set at package import
+    """The package sets its cache at import (tests/test_compile_cache.py
+    covers where); the test session opts out, so CPU test compiles stay
+    out of the checkout's cache."""
+    import importlib
+    import os
+
+    cfg = importlib.import_module("petal_decomposition_tpu.config")
+    assert os.environ.get("PETAL_NO_COMPILE_CACHE")
+    assert jax.config.jax_compilation_cache_dir is None
+    assert os.path.basename(cfg._CHECKOUT_CACHE_DIR) == ".jax_cache"

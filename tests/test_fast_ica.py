@@ -372,6 +372,31 @@ def test_iteration_precision_budget_cap():
     assert 1 <= ica.n_iter_ <= 50
 
 
+def test_iteration_precision_hands_off_when_w_is_stationary():
+    """With many sources the reference functional (rows of the new W
+    against columns of the old) never meets tol, so both fits run to
+    max_iter; the ladder still leaves f32 once W stops moving and ends
+    on the full-precision fixed point, not an f32-grade one."""
+    rng = np.random.default_rng(11)
+    k = 12
+    q = np.linalg.qr(rng.standard_normal((k, k)))[0]
+    x = rng.laplace(size=(20_000, k)) @ (q * rng.uniform(0.5, 2.0, k)).T
+    full = FastIca(seed=RNG_SEED, iteration_precision="full").fit(x)
+    mixed = FastIca(seed=RNG_SEED, iteration_precision="f32").fit(x)
+    assert full.n_iter_ == mixed.n_iter_ == 200
+    cf = np.asarray(full.components())
+    cm = np.asarray(mixed.components())
+    # Match rows up to sign and order (the stages' trajectories differ).
+    cos = (cm / np.linalg.norm(cm, axis=1, keepdims=True)) @ (
+        cf / np.linalg.norm(cf, axis=1, keepdims=True)
+    ).T
+    match = np.argmax(np.abs(cos), axis=1)
+    assert sorted(match.tolist()) == list(range(k))
+    sign = np.sign(cos[np.arange(k), match])[:, None]
+    np.testing.assert_allclose(cm, sign * cf[match],
+                               atol=1e-10 * np.abs(cf).max())
+
+
 def test_iteration_precision_f32_data_unaffected():
     """float32 data iterates at its own dtype regardless of setting."""
     x, s = _mixture()
@@ -410,7 +435,7 @@ def test_fast_ica_k_exceeds_data_rank():
     """k > rank(X): dead whitened channels are zeroed by the rank
     cutoff, the decorrelated W spans only rank(X) directions (W·Wᴴ is a
     projector, not I), and the fit must succeed with finite output —
-    found by a TPU shape sweep raising a spurious LinalgError."""
+    found by an accelerator shape sweep raising a spurious LinalgError."""
     rng = np.random.default_rng(2)
     x = (rng.standard_normal((5000, 2)) @ rng.standard_normal((2, 64)))
     ica = FastIcaBuilder().seed(RNG_SEED).n_components(4).build()

@@ -1,7 +1,7 @@
 """Linalg-core tests: the L2 layer (SURVEY §2 C7/C8 analogues).
 
-Backends are exercised explicitly: the Jacobi solvers are what runs on
-TPU for f64, so they are tested on CPU here against numpy ground truth.
+Backends are exercised explicitly: the in-house solvers are what runs
+off the CPU, so they are tested on CPU here against numpy ground truth.
 """
 
 import numpy as np
@@ -178,9 +178,9 @@ def test_linalg_error_on_nonconvergence():
 def test_qdwh_svd_matches_lapack():
     """The wide-f32 QDWH-SVD route (ops.jacobi._qdwh_svd) is backward
     stable: sigma to ~eps*sigma1, orthonormal factors, exact
-    reconstruction — no Gram kappa^2 squaring.  (Dispatched on TPU for
-    f32 beyond the VMEM kernels; the function itself is pure XLA and
-    testable on CPU.)"""
+    reconstruction — no Gram kappa^2 squaring.  (Dispatched off the CPU
+    for real f32/f64; the function itself is pure XLA and testable on
+    CPU.)"""
     import jax.numpy as jnp
 
     from petal_decomposition_tpu.ops.jacobi import _qdwh_svd

@@ -206,7 +206,7 @@ def test_pca_integer_input_upcasts():
 def test_pca_rank_deficient_centered():
     """Centering n ≤ d data creates a numerically-zero singular
     direction; the fit must converge and stay finite (regression for the
-    pairwise-relative convergence-measure stall found on TPU)."""
+    pairwise-relative convergence-measure stall found on an accelerator)."""
     rng = np.random.default_rng(17)
     x = rng.standard_normal((5, 9))
     for backend in ("jacobi",):

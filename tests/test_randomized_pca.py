@@ -239,7 +239,8 @@ def test_randomized_pca_rank_deficient_channels():
     as in examples/unmix_signals.py): every normalizer must produce
     finite factors — the CholeskyQR2 path needs its escalating shift
     when the rank-deficient panel's Gram goes (numerically) indefinite.
-    Regression for a round-2 NaN found driving the example on TPU."""
+    Regression for a round-2 NaN found driving the example on an
+    accelerator."""
     rng = np.random.default_rng(0)
     n = 20_000
     t = np.linspace(0, 8, n)

@@ -1,7 +1,6 @@
 """Mixed-precision eigendecomposition refinement (ops/refine.py) and
-the f64 QDWH-SVD route it enables — the TPU replacement for LAPACK
-``?syev``/``?gesvd`` at widths beyond the df64 VMEM kernel
-(ref: src/linalg/lapack.rs:103-184)."""
+the f64 QDWH-SVD route it enables — the off-CPU replacement for LAPACK
+``?syev``/``?gesvd`` (ref: src/linalg/lapack.rs:103-184)."""
 
 import numpy as np
 import pytest

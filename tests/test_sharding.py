@@ -1,6 +1,6 @@
 """Sharded-vs-single-device equivalence on an 8-virtual-device CPU mesh.
 
-The TPU analogue of the reference's exact-vs-randomized equivalence
+The analogue of the reference's exact-vs-randomized equivalence
 tests (SURVEY §4): a row-sharded fit must produce the same user-visible
 outputs as the unsharded fit.
 """

@@ -1,11 +1,9 @@
-"""Unit tests for ops/splitmm.py — hi/lo-split f32 MXU matmuls used by
+"""Unit tests for ops/splitmm.py — hi/lo-split f32 matmuls used by
 the FastICA ds64 polish stage (fast_ica._ica_par_core stage 2).
 
-The accuracy bars mirror the measured v5e grades recorded in the module
-docstring / benchmarks/DS64_STAGE.json: ~1.5e-7 normwise for the plain
-split product (short contraction) and ~1e-8 for the chunked long
-contraction.  CPU f32 matmuls accumulate like the MXU here (f32 fma),
-so the bars transfer.
+The accuracy bars are the module docstring's grades: ~1.5e-7 normwise
+for the plain split product (short contraction) and ~1e-8 for the
+chunked long contraction, with f32 accumulation.
 """
 
 import jax.numpy as jnp
@@ -56,8 +54,7 @@ def test_mm_split_chunked_f64_long_contraction(n):
     out = splitmm.mm_split_chunked_f64(g, xh, xl, chunk=512)
     assert out.dtype == jnp.float64
     ref = np.asarray(g, np.float64) @ np.asarray(x, np.float64).T
-    # TPU MXU measures 7e-9 at this chunking; CPU's f32 dot uses a
-    # different accumulation order and lands ~5e-7 — the bar is the
+    # CPU's f32 dot lands ~5e-7 at this chunking — the bar is the
     # platform-independent guarantee, an order under the ds64 stage's
     # 2e-6 handoff floor.
     assert _normwise(out, ref) < 1e-6
